@@ -5,16 +5,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the three CUDA kernels from ``src/repro_torch/csrc`` (once), holds
-each against its plain PyTorch version on the card at the shapes the serving
-path gives it, times them beside their bound, then serves ``qwen1.5-0.5b`` at
+It builds the four CUDA kernels from ``src/repro_torch/csrc`` (once), holds
+each against its plain PyTorch version on the card at the shapes its path
+gives it, times them beside their bound, then serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
-four configurations and checks what comes out.  Every phase prints one JSON
-line; any failed phase ends the run with a non-zero exit code.  There is no
-CPU mode: without a GPU the script raises before it prints any result.
+four configurations, runs the autotuner on the card and plans from its
+table, and serves self-speculatively beside a plain arm, checking what comes
+out.  Every phase prints one JSON line; any failed phase ends the run with a
+non-zero exit code.  There is no CPU mode: without a GPU the script raises
+before it prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
-the depth of the full-width model (widths are never cut).
+the depth of the earlier serving phases' model (widths are never cut; the
+``tune`` and ``serve_spec`` phases always run at full depth).
 """
 from __future__ import annotations
 
@@ -34,12 +37,19 @@ import torch
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
-from repro_torch.adapt import SLO  # noqa: E402
+from repro_torch.adapt import SLO, bind_modes  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.limb_matmul.ops import limb_matmul, limb_matmul_plain, tile_grid  # noqa: E402
+from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
+    dd_fold_step,
+    limb_matmul,
+    limb_matmul_dd,
+    limb_matmul_dd_plain,
+    limb_matmul_plain,
+    tile_grid,
+)
 from repro_torch.kernels.quantize_mantissa.ops import (  # noqa: E402
     quantize_mantissa_op,
     quantize_mantissa_plain,
@@ -60,6 +70,8 @@ from repro_torch.serve import (  # noqa: E402
     ServeEngine,
     ragged_requests,
 )
+from repro_torch.spec import SpecConfig  # noqa: E402
+from repro_torch.tune import TuneTable, tune  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
 #: (K, N) of the weight GEMMs on the serving path: wq/wk/wv/wo, gate/up, down
@@ -69,8 +81,22 @@ MAIN_M = (4, 48)
 #: matmul kernels vs their plain versions: max-abs error over result scale
 #: (the bound the reference holds its own kernels to)
 MATMUL_TOL = 2e-6
+#: double-f32 kernel, over the result's scale: (hi + lo) against an f64
+#: product (the reference's bound for its own kernel), |lo| against max|hi|,
+#: and (hi + lo) against the plain version folding at the kernel's K step —
+#: each of the two is held within 2^-22 of f64, so they may differ by twice
+#: that (their products are summed in different orders inside a K step)
+DD_F64_TOL = 2.0**-22
+DD_LO_RATIO = 2.0**-20
+DD_TOL = 2.0**-21
+#: (M, K, N, limbs) checked and timed: the reference's test shape, a ragged
+#: shape, and the serving shapes at M32 (4 limbs) and M48 (6 limbs)
+DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + tuple(
+    (m, k, n, limbs) for limbs in (4, 6) for m in MAIN_M for (k, n) in MAIN_KN)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
-          "serve_planned")
+          "serve_planned", "tune", "serve_spec")
+#: where the tune phase writes its measured table (git-ignored)
+TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
 KERNEL_INFO = {
     "quantize_mantissa": dict(
@@ -82,7 +108,13 @@ KERNEL_INFO = {
     "tile_matmul": dict(
         route="cuda", source="src/repro_torch/csrc/tile_matmul.cu",
         replaces="src/repro/kernels/tile_matmul/tile_matmul.py:82"),
+    "limb_matmul_dd": dict(
+        route="cuda", source="src/repro_torch/csrc/limb_matmul_dd.cu",
+        replaces="src/repro/kernels/limb_matmul/limb_matmul.py:123"),
 }
+#: kernels no serving path calls (as in the reference): their path is their
+#: own public entry point, driven in the kernels phase
+ENTRY_POINT_KERNELS = {"limb_matmul_dd": "repro_torch.kernels.limb_matmul.limb_matmul_dd"}
 
 
 #: file that also receives every JSON line (``--out``); the terminal of a
@@ -157,16 +189,32 @@ def time_ms(fn, n_variants: int = 1, warmup: int = 3, reps: int = 10,
     return statistics.median(times), statistics.median(enqueues)
 
 
+def wall_ms(fn, reps: int = 5) -> float:
+    """Host wall time of one synchronised ``fn()`` call, median of ``reps``
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 def n_rotations(nbytes: int) -> int:
     """Copies of an operand needed to exceed the 50 MB L2 between reuses."""
     return max(2, math.ceil(64e6 / max(nbytes, 1)) + 1)
 
 
-def gemm_bound_ms(m: int, k: int, n: int, passes: float) -> tuple[float, str]:
+def gemm_bound_ms(m: int, k: int, n: int, passes: float,
+                  outputs: int = 1) -> tuple[float, str]:
     """Least time for the GEMM on the data-sheet card: bytes (each operand
-    read once, the result written once) over the memory rate, or the
-    retained passes' operations over the bf16 tensor-core rate."""
-    t_bytes = 4.0 * (m * k + k * n + m * n) / HBM_BW
+    read once, each of the ``outputs`` f32 results written once) over the
+    memory rate, or the retained passes' operations over the bf16
+    tensor-core rate."""
+    t_bytes = 4.0 * (m * k + k * n + outputs * m * n) / HBM_BW
     t_ops = passes * 2.0 * m * k * n / PEAK_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
@@ -280,6 +328,89 @@ def check_kernels(gen) -> dict:
             "ladder_rel_err": ladder}
 
 
+def check_dd(gen) -> dict:
+    """Hold the double-f32 kernel against an f64 product and against its
+    plain version folding at the kernel's K step, at every DD case; then
+    print its error beside the f32 limb kernel's at k = 3, K = 2816."""
+    cases = []
+    for m, k, n, limbs in DD_CASES:
+        a, b = _rand(gen, m, k), _rand(gen, k, n)
+        hi, lo = limb_matmul_dd(a, b, limbs)
+        torch.cuda.synchronize()
+        _, (_, _, bk) = tile_grid(m, n, k)
+        p_hi, p_lo = limb_matmul_dd_plain(a, b, limbs, bk=bk, fold=dd_fold_step(limbs))
+        exact = a.double() @ b.double()
+        scale = float(exact.abs().max())
+        got = hi.double() + lo.double()
+        f64_err = float((got - exact).abs().max()) / scale
+        plain_abs = float((got - (p_hi.double() + p_lo.double())).abs().max())
+        lo_ratio = float(lo.abs().max() / hi.abs().max())
+        what = f"limb_matmul_dd {(m, k, n)} k={limbs}"
+        check(f64_err <= DD_F64_TOL, f"{what}: {f64_err:.3e} of scale from f64 > {DD_F64_TOL:.3e}")
+        check(lo_ratio < DD_LO_RATIO, f"{what}: |lo|/max|hi| = {lo_ratio:.3e}")
+        check(plain_abs / scale <= DD_TOL,
+              f"{what}: {plain_abs / scale:.3e} of scale from the plain version > {DD_TOL:.3e}")
+        cases.append(dict(m=m, k=k, n=n, limbs=limbs, f64_rel_err=f64_err,
+                          vs_plain_abs_err=plain_abs, vs_plain_rel_err=plain_abs / scale,
+                          lo_over_hi=lo_ratio))
+    side_by_side = []
+    for m in MAIN_M:
+        a, b = _rand(gen, m, 2816), _rand(gen, 2816, 1024)
+        exact = a.double() @ b.double()
+        scale = float(exact.abs().max())
+        hi, lo = limb_matmul_dd(a, b, 3)
+        side_by_side.append(dict(
+            m=m, k=2816, n=1024, limbs=3,
+            dd_f64_rel_err=float((hi.double() + lo.double() - exact).abs().max()) / scale,
+            limb_f64_rel_err=float((limb_matmul(a, b, 3).double() - exact).abs().max()) / scale))
+    return {"cases": cases, "tolerance_vs_f64": DD_F64_TOL, "lo_ratio": DD_LO_RATIO,
+            "tolerance_vs_plain": DD_TOL,
+            "max_abs_err": max(c["vs_plain_abs_err"] for c in cases),
+            "max_rel_err": max(c["vs_plain_rel_err"] for c in cases),
+            "dd_vs_limb_k3": side_by_side}
+
+
+def drive_dd_entry_point(gen) -> int:
+    """The double-f32 kernel's path: its public entry point at the serving
+    shapes at M32 and M48, with the launch counts zeroed just before and read
+    just after."""
+    operands = [(_rand(gen, m, k), _rand(gen, k, n), limbs)
+                for limbs in (4, 6) for m in MAIN_M for (k, n) in MAIN_KN]
+    build.reset_launch_counts()
+    for a, b, limbs in operands:
+        limb_matmul_dd(a, b, limbs)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()["limb_matmul_dd"]
+    check(launches == len(operands), f"limb_matmul_dd launched {launches} times")
+    return launches
+
+
+def time_dd(gen) -> list[dict]:
+    """Time the double-f32 kernel at every DD case beside its bound, its
+    plain version at the kernel's fold step and one torch.matmul in f32 and
+    in f64 (what an M32/M48 user would otherwise call).  Operands smaller
+    than the L2 cache rotate through at most 64 copies and are read warm."""
+    rows = []
+    for m, k, n, limbs in DD_CASES:
+        a = _rand(gen, m, k)
+        n_rot = min(n_rotations(4 * k * n), 64)
+        bs = [_rand(gen, k, n) for _ in range(n_rot)]
+        a64, bs64 = a.double(), [x.double() for x in bs]
+        _, (_, _, bk) = tile_grid(m, n, k)
+        step = dd_fold_step(limbs)
+        bound, by = gemm_bound_ms(m, k, n, len(limb_product_terms(limbs)), outputs=2)
+        ms, enqueue = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs), n_rot)
+        plain, _ = time_ms(lambda i: limb_matmul_dd_plain(a, bs[i], limbs, bk=bk, fold=step),
+                           n_rot, warmup=1, reps=2, samples=3)
+        lib32, _ = time_ms(lambda i: torch.matmul(a, bs[i]), n_rot)
+        lib64, _ = time_ms(lambda i: torch.matmul(a64, bs64[i]), n_rot)
+        rows.append(dict(kernel="limb_matmul_dd", m=m, k=k, n=n, limbs=limbs, ms=ms,
+                         enqueue_ms=enqueue, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=lib64, library_f32_ms=lib32, library_bf16_ms=None))
+        del bs, bs64
+    return rows
+
+
 def time_kernels(gen) -> dict:
     """Time every kernel at the serving path's shapes beside its bound, its
     plain version and the library's matmul at the same shape."""
@@ -340,10 +471,15 @@ def phase_kernels(gen) -> tuple[dict, dict]:
     build_s = time.perf_counter() - t0
     check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1")
     checks = check_kernels(gen)
+    dd = check_dd(gen)
+    checks["max_abs_err"]["limb_matmul_dd"] = dd["max_abs_err"]
+    checks["max_rel_err"]["limb_matmul_dd"] = dd["max_rel_err"]
+    checks["entry_point_launches"] = {"limb_matmul_dd": drive_dd_entry_point(gen)}
     timing = time_kernels(gen)
+    timing["rows"] += time_dd(gen)
     check(build.BUILD_COUNT == 1, "kernels were built more than once")
     emit("kernels", build_s=build_s, build_count=build.BUILD_COUNT,
-         kernels=sorted(KERNEL_INFO), tolerance=MATMUL_TOL, **checks,
+         kernels=sorted(KERNEL_INFO), tolerance=MATMUL_TOL, dd=dd, **checks,
          kernel_ms=timing["rows"], f32_matmul_4096=timing["f32_matmul_4096"])
     return checks, timing
 
@@ -408,18 +544,6 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
     busy (sum of device kernel times from ``torch.profiler`` over the wall)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     vocab, d = model.cfg.vocab, model.cfg.d_model
-
-    def wall_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
     prompt = torch.randint(0, vocab, (1, prompt_len), generator=gen, device="cuda")
     solo0 = model.init_decode_state(1, max_len, per_slot=True)
     prompts = torch.randint(0, vocab, (slots, prompt_len // 2), generator=gen, device="cuda")
@@ -443,26 +567,36 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
         "launches_per_decode_step": {k: mid[k] - before[k] for k in mid},
         "launches_per_prefill": {k: after[k] - mid[k] for k in mid},
     }
+    steps = 3
+    busy, device_ms, top = device_busy(lambda: model.decode_step(params, tok, state), steps)
+    out["profiled_decode_steps"] = steps
+    out["device_busy_share_under_profiler"] = busy
+    out["device_ms_per_decode_step"] = device_ms
+    out["top_device_kernels"] = top
+    return out
+
+
+def device_busy(fn, calls: int) -> tuple[float | None, float | None, list[dict]]:
+    """``fn`` run ``calls`` times under ``torch.profiler``: the share of the
+    wall time in which the card ran a kernel (sum of device kernel times
+    over the wall), device ms per call, and the six kernels with the most
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            model.decode_step(params, tok, state)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
               and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(e.device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.device_time_total)[:6]
-    out["profiled_decode_steps"] = steps
-    out["device_busy_share_under_profiler"] = (busy_us / wall_us) if busy_us else None
-    out["device_ms_per_decode_step"] = (busy_us / steps / 1e3) if busy_us else None
-    out["top_device_kernels"] = [
-        {"name": e.key[:60], "calls_per_step": e.count / steps,
-         "device_ms_per_step": e.device_time_total / steps / 1e3} for e in top]
-    return out
+    return ((busy_us / wall_us) if busy_us else None,
+            (busy_us / calls / 1e3) if busy_us else None,
+            [{"name": e.key[:60], "calls_per_step": e.count / calls,
+              "device_ms_per_step": e.device_time_total / calls / 1e3} for e in top])
 
 
 def phase_serve_static(params_cache, n_layers):
@@ -567,6 +701,121 @@ def phase_serve_planned(params_cache, n_layers):
     return counts
 
 
+def phase_tune(params_cache):
+    """The autotuner on the card over a small grid, its table saved, loaded
+    and compared, then a full-width engine planned from it at a tightened
+    accuracy: every site's plan with its cost source, beside the plan the
+    data-sheet roofline makes.  What the tuned plans choose is printed, not
+    asserted."""
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = tune((256, 1024), backend="gpu", modes=(Mode.M8, Mode.M16, Mode.M24), iters=3)
+    tune_s = time.perf_counter() - t0
+    launches = build.launch_counts()
+    table.save(TUNE_TABLE_PATH)
+    loaded = TuneTable.load(TUNE_TABLE_PATH)
+    check(loaded.fingerprint == table.fingerprint, "tuning table changed on a save/load")
+    check(launches["limb_matmul"] > 0 and launches["tile_matmul"] > 0,
+          "the tuner measured neither kernel")
+    best = {}
+    for r in table.records:
+        key = f"n={r.m} {r.mode}"
+        if key not in best or r.wall_us < best[key]["wall_us"]:
+            best[key] = {"impl": r.impl, "depth": r.depth, "block": r.block,
+                         "wall_us": r.wall_us, "rel_err": r.rel_err}
+    model = full_width_model(PrecisionPolicy(default=Mode.M24, impl="auto"))
+    params = params_cache(model)
+
+    def plans(tune_table):
+        eng = ServeEngine(model, params, config=ServeConfig(
+            batch_slots=4, max_len=96, accuracy=2.0**-12, tune_table=tune_table))
+        return eng, {site: {"mode": p.mode.name, "impl": p.impl, "depth": p.strassen_depth,
+                            "block": p.block, "source": p.source,
+                            "t_us": p.t_resolved_s * 1e6}
+                     for site, p in eng.plans.items()}
+
+    eng, tuned = plans(TUNE_TABLE_PATH)
+    _, roofline = plans(False)
+    check(build.BUILD_COUNT == 1, "the tune phase rebuilt the kernel library")
+    emit("tune", sizes=[256, 1024], modes=["M8", "M16", "M24"], iters=3, tune_s=tune_s,
+         records=len(table.records), fingerprint=table.fingerprint, path=TUNE_TABLE_PATH,
+         balance={"peak_flops": table.balance.peak_flops, "hbm_bw": table.balance.hbm_bw,
+                  "source": table.balance.source},
+         launches=launches, fastest_per_size_and_mode=best,
+         plans=eng.describe_plans().splitlines(), tuned=tuned, roofline=roofline,
+         changed_sites=sorted(site for site in tuned
+                              if (tuned[site]["impl"], tuned[site]["depth"])
+                              != (roofline[site]["impl"], roofline[site]["depth"])))
+
+
+def phase_serve_spec(params_cache):
+    """Self-speculative serving at full width and depth beside a plain arm
+    over the same requests: identical tokens, acceptance above 0, one build.
+    Also the host's cost of one draft substep, one verify substep and one
+    round on a 4-slot state (wall clock around a synchronised call), and the
+    device time of a round under the profiler."""
+    policy = PrecisionPolicy(default=Mode.M24, impl="pallas")
+    model = full_width_model(policy)
+    params = params_cache(model)
+    reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(4))
+    spec = SpecConfig(k=3, draft_shift=2)
+    arms = {}
+    for name, cfg in (("plain", ServeConfig(batch_slots=4, max_len=96)),
+                      ("spec", ServeConfig(batch_slots=4, max_len=96, spec=spec))):
+        e, o, c, w = serve(model, params, cfg, [dataclasses.replace(r) for r in reqs], seed=4)
+        arms[name] = (e, o, c, w, serve_summary(e, o, w))
+    eng, outs, counts, wall, summary = arms["spec"]
+    _, base_outs, base_counts, base_wall, base_summary = arms["plain"]
+    for r in reqs:
+        check(outs[r.rid] == base_outs[r.rid],
+              f"request {r.rid}: speculative tokens != plain tokens")
+    s = eng.metrics.summary()
+    check(s["acceptance_rate"] is not None and s["acceptance_rate"] > 0,
+          f"acceptance {s['acceptance_rate']}")
+    check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 with speculation")
+    check(counts["tile_matmul"] > 0 and counts["limb_matmul"] > 0,
+          "the round missed the draft (mode-map) or the verify (limb) kernel")
+
+    # host cost of the pieces of a round, on a 4-slot state of 24 cached tokens
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    prompts = torch.randint(0, model.cfg.vocab, (4, 24), generator=gen, device="cuda")
+    _, state = model.decode_step(params, prompts, model.init_decode_state(4, 96, per_slot=True))
+    tok = torch.randint(0, model.cfg.vocab, (4, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    active = torch.ones(4, dtype=torch.bool, device="cuda")
+    table = eng._spec_table
+    draft, verify = table.scalars_shifted(-spec.draft_shift), table.scalars()
+
+    def draft_substep():
+        with bind_modes(draft):
+            model.decode_step(params, tok, state)
+
+    def one_round():
+        eng._spec_round(params, tok, state, active, draft, verify)
+
+    busy, device_ms, top = device_busy(one_round, 2)
+    substeps = {
+        "draft_substep_ms": wall_ms(draft_substep),
+        "verify_substep_ms": wall_ms(lambda: model.decode_step(params, tok, state)),
+        "round_ms": wall_ms(one_round),
+        "round_device_busy_share_under_profiler": busy,
+        "round_device_ms": device_ms,
+        "round_top_device_kernels": top,
+    }
+    emit("serve_spec", arch=ARCH, layers=model.cfg.n_layers, policy=policy.describe(),
+         k=spec.k, draft_shift_start=spec.draft_shift, draft_shift_end=eng.draft_shift,
+         tokens_identical=True, acceptance=s["acceptance_rate"],
+         verify_steps_per_token=s["verify_steps_per_token"], spec_rounds=s["spec_rounds"],
+         draft_shift_timeline=eng.metrics.draft_shift_timeline,
+         speculation=eng.describe_speculation(), build_count=build.BUILD_COUNT,
+         spec_compile_count=eng.spec_compile_count,
+         launches_spec=counts, launches_plain=base_counts,
+         spec=summary, plain=base_summary,
+         tok_per_s_ratio=summary["tok_per_s"] / base_summary["tok_per_s"],
+         host_cost_4_slots=substeps)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
@@ -576,23 +825,40 @@ def kernels_line(checks, timing, main_counts) -> dict:
     """One entry per kernel: its numbers at the decode shape that dominates
     the serving path (every measured shape is in the ``kernels`` phase line)."""
     primary = {"limb_matmul": (4, 1024, 2816, 2), "tile_matmul": (4, 1024, 2816, 3),
-               "quantize_mantissa": (1024, None, 2816, None)}
+               "quantize_mantissa": (1024, None, 2816, None),
+               "limb_matmul_dd": (4, 1024, 2816, 4)}
+    err_is = {
+        "quantize_mantissa": "bit-exact (0 differing words)",
+        "limb_matmul_dd": "largest |(hi + lo) - plain(hi + lo)| over all checked cases, the "
+                          "plain version folding at the kernel's K step (N(0,1) operands); "
+                          f"max_rel_err is that over the result's scale, held to {DD_TOL:.3e}",
+    }
     out = []
     for name, info in KERNEL_INFO.items():
         rows = [r for r in timing["rows"] if r["kernel"] == name]
         m, k, n, limbs = primary[name]
         main = next(r for r in rows if (r["m"], r["k"], r["n"], r["limbs"]) == (m, k, n, limbs))
+        entry = {}
+        if name in ENTRY_POINT_KERNELS:
+            launches = checks["entry_point_launches"][name]
+            entry = dict(path=f"its own public entry point {ENTRY_POINT_KERNELS[name]} "
+                              "(no serving path calls it, as in the reference), driven at "
+                              "the serving shapes in the kernels phase",
+                         library_is="torch.matmul in float64",
+                         library_f32_ms=main["library_f32_ms"])
+        else:
+            launches = main_counts[name]
         out.append(dict(
-            name=name, **info, launches=main_counts[name],
+            name=name, **info, launches=launches,
             max_abs_err=checks["max_abs_err"][name],
             max_rel_err=checks["max_rel_err"][name],
-            err_is="largest |kernel - plain| over all checked cases (N(0,1) operands); "
-                   "max_rel_err is that over the result's scale, held to 2e-6"
-                   if name != "quantize_mantissa" else "bit-exact (0 differing words)",
+            err_is=err_is.get(name, "largest |kernel - plain| over all checked cases (N(0,1) "
+                                    "operands); max_rel_err is that over the result's scale, "
+                                    "held to 2e-6"),
             shape={"m": m, "k": k, "n": n, "limbs": limbs},
             ms=main["ms"], enqueue_ms=main["enqueue_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"]))
+            library_ms=main["library_ms"], **entry))
     return {"kernels": out}
 
 
@@ -633,15 +899,22 @@ def main() -> int:
     checks = timing = None
     if "kernels" in phases:
         checks, timing = phase_kernels(gen)
-    main_counts = {name: 0 for name in KERNEL_INFO}
+    main_counts = {name: 0 for name in KERNEL_INFO if name not in ENTRY_POINT_KERNELS}
     for name, fn in (("serve_static", phase_serve_static),
                      ("serve_adapt", phase_serve_adapt),
                      ("serve_grte", phase_serve_grte)):
         if name in phases:
             for kname, c in fn(params_cache, args.layers).items():
-                main_counts[kname] += c
+                if kname in main_counts:
+                    main_counts[kname] += c
     if "serve_planned" in phases:
         phase_serve_planned(params_cache, args.layers)
+    if "tune" in phases:
+        phase_tune(params_cache)
+    if "serve_spec" in phases:
+        for kname, c in phase_serve_spec(params_cache).items():
+            if kname in main_counts:
+                main_counts[kname] += c
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

@@ -1,0 +1,71 @@
+// limb_matmul_dd — CUDA port of the TPU kernel `limb_matmul_dd_pallas`
+// (src/repro/kernels/limb_matmul/limb_matmul.py; body
+// `_limb_matmul_dd_kernel`).
+//
+// a (M,K) f32 @ b (K,N) f32 -> a (hi, lo) pair of (M,N) f32 at k in 1..6
+// bf16 limbs (M32 = 4, M48 = 6).  The datapath is the limb kernel's
+// (rmpm_gemm.cuh): operand tiles read once and peeled into limbs on chip,
+// the k(k+1)/2 retained products on the tensor cores, high-order terms
+// first.  What differs is the accumulation: two f32 registers per output
+// element, sum and compensation, and every term's partial sum over one K
+// step is folded in with Knuth's TwoSum; the last step renormalizes the
+// pair into hi = s + c and lo = the rounding error of that add.
+//
+// Grain.  The TPU kernel folds once per (bk slab, term); this kernel folds
+// once per (TK step, term), TK = 64 below four limbs and 32 above.  That is
+// finer — each partial sums fewer products in plain f32 — so it is at least
+// as accurate, but not bit-equal to a slab-grain fold: the plain version
+// (`limb_matmul_dd_plain`) takes the fold step as an argument and is held
+// against this kernel at TK.
+//
+// Bound on this card: at the serving shapes (M of a few rows) the weight is
+// read once and dominates — bytes over the memory rate; for large M the
+// k(k+1)/2 passes over the bf16 tensor-core rate.  This first version is
+// the limb kernel's thread-block tile with a second accumulator; it is
+// written to be right, and its times stand beside the bound in PERF.md.
+#include "rmpm_gemm.cuh"
+
+namespace {
+
+template <int KMAX>
+__global__ void __launch_bounds__(rmpm::THREADS)
+limb_matmul_dd_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                      float* __restrict__ hi, float* __restrict__ lo, int M,
+                      int N, int K, int bm, int bn, int bk) {
+  rmpm::rmpm_gemm_body<KMAX, true>(A, B, hi, nullptr, 0, M, N, K, bm, bn, bk,
+                                   lo);
+}
+
+template <int KMAX>
+int launch(const float* a, const float* b, float* hi, float* lo, int m, int n,
+           int k, int bm, int bn, int bk, cudaStream_t stream) {
+  limb_matmul_dd_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn), rmpm::THREADS,
+                                0, stream>>>(a, b, hi, lo, m, n, k, bm, bn, bk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// limbs in [1, 6]; (bm, bn, bk) as clamped by the wrapper's tile_grid.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad argument.
+extern "C" int rmpm_limb_matmul_dd(const void* a, const void* b, void* hi,
+                                   void* lo, int m, int n, int k, int limbs,
+                                   int bm, int bn, int bk, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
+      hi == nullptr || lo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float* A = (const float*)a;
+  const float* B = (const float*)b;
+  float* H = (float*)hi;
+  float* L = (float*)lo;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (limbs) {
+    case 1: return launch<1>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    case 2: return launch<2>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    case 3: return launch<3>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    case 4: return launch<4>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    case 5: return launch<5>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    case 6: return launch<6>(A, B, H, L, m, n, k, bm, bn, bk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,5 +1,5 @@
-// rmpm_gemm.cuh — the limb datapath shared by the limb kernel and the
-// mode-map kernel.
+// rmpm_gemm.cuh — the limb datapath shared by the limb kernel, the
+// mode-map kernel and the double-f32 limb kernel.
 //
 // One device function, `rmpm_gemm_body<KMAX>`, computes one thread-block
 // tile of  C (M,N) f32 = A (M,K) f32 @ B (K,N) f32  at limb precision:
@@ -11,10 +11,12 @@
 // (small-magnitude) terms first — the term order of `limb_product_terms`.
 //
 // `limb_matmul_kernel` calls it with no map (k_tile == KMAX everywhere);
-// `tile_matmul_kernel` calls it with the int32 mode map.  Because both run
-// the same body, the same K walk and the same term order, a uniform map at
-// mode m gives the same bits as the limb kernel at k = m — the contract the
-// TPU kernels hold by construction, held here the same way.
+// `tile_matmul_kernel` calls it with the int32 mode map;
+// `limb_matmul_dd_kernel` calls its compile-time double-f32 variant (DD).
+// Because the first two run the same body, the same K walk and the same
+// term order, a uniform map at mode m gives the same bits as the limb kernel
+// at k = m — the contract the TPU kernels hold by construction, held here
+// the same way.
 //
 // What replaces what (TPU -> Hopper):
 //  * the sequential K grid with an accumulator carried in scratch memory
@@ -52,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <type_traits>
+
 namespace rmpm {
 
 constexpr int TM = 32;       // thread-block tile rows
@@ -71,16 +75,37 @@ struct Tiling {
   static constexpr int B_PER_THREAD = TK * TN / THREADS;
 };
 
+// Knuth's TwoSum, folded into a (sum, compensation) pair: s + c gains p
+// with no rounding error lost.  Every add and subtract is an explicit
+// round-to-nearest intrinsic, so the compiler can neither contract it into an
+// FMA nor reassociate it away.
+__device__ __forceinline__ void two_sum_fold(float& s, float& c, float p) {
+  const float t = __fadd_rn(s, p);
+  const float bb = __fsub_rn(t, s);
+  c = __fadd_rn(c, __fadd_rn(__fsub_rn(s, __fsub_rn(t, bb)), __fsub_rn(p, bb)));
+  s = t;
+}
+
+struct NoCompensation {};
+
 // map == nullptr: every tile runs all KMAX-limb terms (the limb kernel).
 // map_ndim == 2: map[(i * gn + j)];  map_ndim == 3: map[(i * gn + j) * gk + kk].
-template <int KMAX>
+//
+// DD (compile-time): the double-f32 variant of the limb kernel.  Each
+// fragment element carries a second f32 register, the compensation, and
+// every term's partial sum over one K step is folded in with TwoSum instead
+// of a plain add; at the end C receives hi = s + c and C_lo the rounding
+// error of that sum.  With DD == false no compensation exists and the code
+// is the plain limb datapath, so the limb and mode-map kernels are unchanged.
+template <int KMAX, bool DD = false>
 __device__ __forceinline__ void rmpm_gemm_body(
     const float* __restrict__ A, const float* __restrict__ B,
     float* __restrict__ C, const int* __restrict__ map, int map_ndim, int M,
-    int N, int K, int bm, int bn, int bk) {
+    int N, int K, int bm, int bn, int bk, float* __restrict__ C_lo = nullptr) {
   using T = Tiling<KMAX>;
   constexpr int TK = T::TK;
   namespace wmma = nvcuda::wmma;
+  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
   __shared__ __align__(32) __nv_bfloat16 As[KMAX][TM][T::A_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[KMAX][TK][T::B_LD];
@@ -104,8 +129,10 @@ __device__ __forceinline__ void rmpm_gemm_body(
   const int wr = (warp >> 1) * 16;  // fragment origin inside the block tile
   const int wc = (warp & 1) * 16;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  Acc acc;
   wmma::fill_fragment(acc, 0.0f);
+  std::conditional_t<DD, Acc, NoCompensation> comp;
+  if constexpr (DD) wmma::fill_fragment(comp, 0.0f);
 
   float ra[T::A_PER_THREAD];
   float rb[T::B_PER_THREAD];
@@ -187,9 +214,15 @@ __device__ __forceinline__ void rmpm_gemm_body(
               wmma::load_matrix_sync(fb, &Bs[tj][ks][wc], T::B_LD);
               wmma::mma_sync(part, fa, fb, part);
             }
+            if constexpr (DD) {
 #pragma unroll
-            for (int e = 0; e < acc.num_elements; ++e)
-              acc.x[e] = __fadd_rn(acc.x[e], part.x[e]);
+              for (int e = 0; e < acc.num_elements; ++e)
+                two_sum_fold(acc.x[e], comp.x[e], part.x[e]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < acc.num_elements; ++e)
+                acc.x[e] = __fadd_rn(acc.x[e], part.x[e]);
+            }
           }
         }
       }
@@ -197,12 +230,29 @@ __device__ __forceinline__ void rmpm_gemm_body(
     }
   }
 
-  wmma::store_matrix_sync(&Cs[wr][wc], acc, CS_LD, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < TM * TN; idx += THREADS) {
-    const int r = row0 + idx / TN;
-    const int c = col0 + idx % TN;
-    if (r < row_end && c < col_end) C[(long long)r * N + c] = Cs[idx / TN][idx % TN];
+  auto store = [&](const Acc& frag, float* __restrict__ out) {
+    wmma::store_matrix_sync(&Cs[wr][wc], frag, CS_LD, wmma::mem_row_major);
+    __syncthreads();
+    for (int idx = tid; idx < TM * TN; idx += THREADS) {
+      const int r = row0 + idx / TN;
+      const int c = col0 + idx % TN;
+      if (r < row_end && c < col_end) out[(long long)r * N + c] = Cs[idx / TN][idx % TN];
+    }
+  };
+  if constexpr (DD) {
+    // renormalize: hi = s + c, lo = its rounding error (TwoSum of s and c)
+#pragma unroll
+    for (int e = 0; e < acc.num_elements; ++e) {
+      float hi = acc.x[e], lo = 0.0f;
+      two_sum_fold(hi, lo, comp.x[e]);
+      acc.x[e] = hi;
+      comp.x[e] = lo;
+    }
+    store(acc, C);
+    __syncthreads();  // every thread has read Cs before it is reused
+    store(comp, C_lo);
+  } else {
+    store(acc, C);
   }
 }
 

@@ -1,6 +1,6 @@
 """Build, load and bind the port's CUDA kernels.
 
-The three kernels live in ``repro_torch/csrc/*.cu`` with a plain C
+The four kernels live in ``repro_torch/csrc/*.cu`` with a plain C
 interface.  At first use every source is compiled by its own ``nvcc``
 process (all started together) and the objects are linked into ONE shared
 library under ``build/repro_torch/``, which is loaded with ``ctypes``.
@@ -20,7 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("quantize_mantissa.cu", "limb_matmul.cu", "tile_matmul.cu")
+SOURCES = ("quantize_mantissa.cu", "limb_matmul.cu", "tile_matmul.cu",
+           "limb_matmul_dd.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -29,7 +30,8 @@ NVCC_FLAGS = (
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 
 BUILD_COUNT = 0
-LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0}
+LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0,
+            "limb_matmul_dd": 0}
 
 _LIB = None
 
@@ -112,6 +114,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rmpm_limb_matmul.restype = i
     lib.rmpm_tile_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rmpm_tile_matmul.restype = i
+    lib.rmpm_limb_matmul_dd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.rmpm_limb_matmul_dd.restype = i
     lib.rmpm_error_string.argtypes = [i]
     lib.rmpm_error_string.restype = ctypes.c_char_p
 

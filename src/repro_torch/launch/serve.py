@@ -15,12 +15,16 @@ The model runs on the GPU; ``--device cpu`` (with ``--smoke``) runs the plain
 versions on the CPU.  Pass ``--adapt`` (with ``--slo-err``, optionally
 ``--slo-ms``) to close the loop at run time: the decode phase's modes become
 a mutable mode table that the probe + hysteresis controller retunes against
-the SLO between steps, with nothing rebuilt.
+the SLO between steps, with nothing rebuilt.  Pass ``--speculate`` (with
+``--draft-k``, ``--draft-shift``) for self-speculative decoding
+(repro_torch.spec): the cheap mode of the same step drafts, the exact step
+verifies — identical outputs.  ``--tune-table`` plans ``--accuracy`` from a
+measured tuning table (``python -m repro_torch.tune``).
 
-Flags of features that are not ported yet (``--speculate``, ``--paged``,
-``--tier-levels``, ``--trace-out``, ``--tune-table``, ``--multi-tenant``
-together with ``--adapt``) are accepted by the parser and refused with a
-NotImplementedError naming the ROADMAP item.
+Flags of features that are not ported yet (``--paged``, ``--tier-levels``,
+``--trace-out``, ``--multi-tenant`` together with ``--adapt``) are accepted
+by the parser and refused with a NotImplementedError naming the ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -85,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="plan per-phase precision for this relative-error "
                          "budget instead of using the --policy preset modes")
     ap.add_argument("--tune-table", default="",
-                    help="measured-cost tuning table (not ported yet)")
+                    help="measured-cost tuning table (file or directory, "
+                         "repro_torch.tune) for the per-phase planner; empty = "
+                         "TUNE_TABLE env var, then pure roofline")
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--adapt", action="store_true",
                     help="closed-loop runtime precision adaptation of the "
@@ -98,9 +104,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--adapt-every", type=int, default=4,
                     help="probe cadence in decode steps")
     ap.add_argument("--speculate", action="store_true",
-                    help="self-speculative decoding (not ported yet)")
-    ap.add_argument("--draft-k", type=int, default=3)
-    ap.add_argument("--draft-shift", type=int, default=2)
+                    help="self-speculative decoding (repro_torch.spec): draft "
+                         "--draft-k tokens per slot under a cheap mode "
+                         "table, verify with the exact baseline step — "
+                         "identical outputs")
+    ap.add_argument("--draft-k", type=int, default=3,
+                    help="draft depth per speculative round")
+    ap.add_argument("--draft-shift", type=int, default=2,
+                    help="initial rungs below the verify modes for the "
+                         "draft table (the acceptance controller retunes "
+                         "it at run time)")
     ap.add_argument("--multi-tenant", action="store_true",
                     help="canned interactive-vs-bulk tenant mix under the "
                          "priority scheduler, with a per-tenant SLO report")
@@ -167,7 +180,7 @@ def main(argv: list[str] | None = None) -> None:
     for rid in sorted(outs):
         print(f"req {rid}: {outs[rid]}")
     print(eng.format_describe())
-    if args.adapt:
+    if args.adapt or args.speculate:
         print(f"kernel library builds: {eng.kernel_build_count}")
     stats = plan_cache_stats()
     print(f"plan cache: {stats.entries} entries, "

@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import glob
 import math
+import os
 from typing import Any
 
 import torch
@@ -58,14 +60,16 @@ class Plan:
     reason: str
     accuracy: float | None = None
     align: int = 128
-    #: how the winning candidate's cost was resolved: 'roofline' (the cost
-    #: model on data-sheet constants) until the tuner is ported.
+    #: how the winning candidate's cost was resolved: 'measured' (exact
+    #: tuning-table hit), 'interpolated' (flops-scaled nearest neighbor), or
+    #: 'roofline' (model fallback — the only source when no tuning table is
+    #: active).
     source: str = "roofline"
     #: resolved execution time ranked against the other candidates —
-    #: cost.t_total_s of the winner (scaled by the batch).
+    #: measured/scaled seconds under a tuning table, cost.t_total_s otherwise.
     t_resolved_s: float | None = None
-    #: (bm, bn, bk) map-tile override; None = kernel defaults.  Meaningful
-    #: for impl='pallas'/'tile'.
+    #: (bm, bn, bk) map-tile override carried from the winning tuning record;
+    #: None = kernel defaults.  Meaningful for impl='pallas'/'tile'.
     block: tuple[int, int, int] | None = None
     #: how the tile kernel's per-tile mode map is built (impl='tile' only):
     #: 'uniform' (one mode everywhere — bit-exact with impl='pallas') or
@@ -135,21 +139,129 @@ def clear_plan_cache() -> None:
 
 
 # ---------------------------------------------------------------------------
-# Tuning tables — the autotuner is not ported yet (ROADMAP Queue A item 3).
+# Tuning tables (repro_torch.tune) — measured costs override the roofline.
 # ---------------------------------------------------------------------------
 
-_TUNER_NOT_PORTED = (
-    "measured tuning tables are not ported yet (ROADMAP Queue A item 3, "
-    "'Planner and tuner': tune/table.py, tune/runner.py); pass "
-    "tune_table=None or False to plan from the roofline model")
+#: env var naming a tuning-table JSON file, or a directory of
+#: ``<backend>.json`` tables (the layout ``python -m repro_torch.tune`` writes).
+TUNE_TABLE_ENV = "TUNE_TABLE"
+
+_TABLES_UNSET = object()
+_GLOBAL_TABLES: Any = _TABLES_UNSET  # dict[backend -> TuneTable] once resolved
+
+
+def _default_backend() -> str:
+    """``backend=None`` means the GPU, and raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "plan_matmul(backend=None) plans for the GPU and found none; "
+            "pass backend='cpu' to plan for the CPU")
+    return "gpu"
+
+
+def _load_tables(src) -> dict:
+    """Normalize a table source (TuneTable | file path | dir path) to a
+    backend-keyed dict — tables never apply across backends."""
+    from repro_torch.tune.table import TuneTable
+
+    if isinstance(src, TuneTable):
+        return {src.backend: src}
+    if not isinstance(src, (str, os.PathLike)):
+        raise TypeError(
+            f"a tuning table is a TuneTable or the path of a table file or "
+            f"directory, got {type(src).__name__}")
+    tables = {}
+    if os.path.isdir(src):
+        for path in sorted(glob.glob(os.path.join(src, "*.json"))):
+            t = TuneTable.load(path)
+            tables[t.backend] = t
+    else:
+        t = TuneTable.load(src)
+        tables[t.backend] = t
+    return tables
+
+
+def _table_cache_key(path: str) -> tuple:
+    """(path, mtime_ns, size) of the table file(s): rewriting a table on disk
+    — e.g. re-running ``python -m repro_torch.tune`` under a live server —
+    must invalidate the load cache, or the stale table's stale fingerprint
+    would keep the plan cache serving superseded plans."""
+    paths = sorted(glob.glob(os.path.join(path, "*.json"))) if os.path.isdir(path) else [path]
+    stats = []
+    for p in paths:
+        try:
+            st = os.stat(p)
+            stats.append((p, st.st_mtime_ns, st.st_size))
+        except OSError:
+            stats.append((p, 0, 0))
+    return (path, tuple(stats))
+
+
+@functools.lru_cache(maxsize=16)
+def _load_tables_for_key(key: tuple) -> dict:
+    return _load_tables(key[0])
+
+
+def _load_tables_cached(path: str) -> dict:
+    return _load_tables_for_key(_table_cache_key(os.fspath(path)))
+
+
+def set_tune_table(table) -> None:
+    """Install the process-global tuning table(s) the planner resolves
+    against: a TuneTable, a table-file path, or a directory of per-backend
+    tables.  ``None`` clears the explicit setting, so the ``TUNE_TABLE`` env
+    var is consulted (lazily) again.  Cached plans are keyed by table
+    fingerprint, so swapping tables never returns a stale plan."""
+    global _GLOBAL_TABLES
+    _GLOBAL_TABLES = _TABLES_UNSET if table is None else _load_tables(table)
+
+
+def active_tune_table(backend: str | None = None):
+    """The tuning table the planner would use for ``backend`` (None -> the
+    GPU, raising when there is none), or None when running pure-roofline.
+    By default no table is loaded: only ``TUNE_TABLE`` or
+    ``set_tune_table`` install one."""
+    global _GLOBAL_TABLES
+    if _GLOBAL_TABLES is _TABLES_UNSET:
+        path = os.environ.get(TUNE_TABLE_ENV, "")
+        _GLOBAL_TABLES = _load_tables(path) if path else {}
+    if backend is None:
+        backend = _default_backend()
+    return _GLOBAL_TABLES.get(backend)
 
 
 def _resolve_tune_table(tune_table, backend: str):
-    """``None`` and ``False`` both mean pure roofline; anything else needs
-    the tuner, which waits for a later slice."""
-    if tune_table is None or tune_table is False:
+    """Per-call table resolution: explicit arg beats the global/env setting;
+    ``False`` forces pure roofline; a table only applies to its own
+    backend."""
+    from repro_torch.tune.table import TuneTable
+
+    if tune_table is False:
         return None
-    raise NotImplementedError(_TUNER_NOT_PORTED)
+    if tune_table is None:
+        return active_tune_table(backend)
+    if isinstance(tune_table, (str, os.PathLike)):
+        return _load_tables_cached(tune_table).get(backend)
+    if not isinstance(tune_table, TuneTable):
+        raise TypeError(
+            f"tune_table must be a TuneTable, a path, None or False, got "
+            f"{type(tune_table).__name__}")
+    return tune_table if tune_table.backend == backend else None
+
+
+def _candidate_time(table, m, k, n, mode, impl, depth, est):
+    """Resolve one candidate's cost in the three-level order: exact
+    tuning-table hit -> flops-scaled nearest neighbor -> roofline estimate.
+    Returns (seconds, source, block)."""
+    if table is not None:
+        rec = table.lookup(m, k, n, mode, impl, depth)
+        if rec is not None:
+            return rec.wall_s, "measured", rec.block
+        near = table.nearest(m, k, n, mode, impl, depth)
+        if near is not None:
+            rec, ratio = near
+            return rec.wall_s * ratio, "interpolated", rec.block
+    return est.t_total_s, "roofline", None
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +303,9 @@ def _impl_candidates(
             cands.append("pallas")
         # The mode-map tile kernel shares the limb kernel's roofline (same
         # datapath; the map is O(grid) int32), so on ties the earlier
-        # 'pallas' candidate wins — 'tile' is selected when pinned, or by
-        # the runtime-dispatch layer (Plan.tile_eligible).
+        # 'pallas' candidate wins — 'tile' is selected when a tuning table
+        # measures it faster, when pinned, or by the runtime-dispatch layer
+        # (Plan.tile_eligible).
         cands.append("tile")
     return cands
 
@@ -243,12 +356,16 @@ def plan_matmul(
       backend: 'gpu' | 'cpu' | 'tpu'; None -> 'gpu', raising when no GPU
         is present.
       balance: machine constants the roofline ranks against; None -> the
-        H100 SXM data-sheet defaults.
+        active tuning table's fitted balance, else the H100 SXM data-sheet
+        defaults.
       rounding: limb-extraction rounding ('rne' | 'grte' | 'trunc').
       max_depth: largest Strassen depth the cost model may choose.
       align: leaf tile alignment (MXU tile side).
-      tune_table: ``None`` or ``False`` (pure roofline).  Measured tuning
-        tables are not ported yet: anything else raises NotImplementedError.
+      tune_table: measured-cost table (repro_torch.tune) candidate costs
+        resolve against — a TuneTable, a path, ``None`` (use the global/env
+        setting, see ``set_tune_table``), or ``False`` (force pure
+        roofline).  A table only applies when its backend matches
+        ``backend``.
 
     Returns a cached :class:`Plan`; identical static requests return the
     identical object (see ``plan_cache_stats``).
@@ -279,16 +396,16 @@ def plan_matmul(
         if dtype == _DF32:
             raise ValueError("map_source='magnitude' covers the f32 ladder only")
     if backend is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "plan_matmul(backend=None) plans for the GPU and found none; "
-                "pass backend='cpu' to plan for the CPU")
-        backend = "gpu"
-    _resolve_tune_table(tune_table, backend)
+        backend = _default_backend()
+    table = _resolve_tune_table(tune_table, backend)
     if balance is None:
-        balance = cost_lib.DEFAULT_BALANCE
+        # With a tuning table active, the roofline fallback runs on the
+        # table's re-fit machine constants (cost.fit_balance) so measured
+        # and modeled candidate times stay commensurable in one ranking.
+        balance = table.balance if table is not None else cost_lib.DEFAULT_BALANCE
     key = (shape_a, shape_b, dtype, accuracy, mode if mode is None else int(mode),
-           impl, backend, rounding, max_depth, align, map_source, balance)
+           impl, backend, rounding, max_depth, align, map_source, balance,
+           table.fingerprint if table is not None else None)
     cached = _PLAN_CACHE.get(key)
     if cached is not None:
         _STATS.hits += 1
@@ -338,9 +455,8 @@ def plan_matmul(
                 peak_flops=balance.peak_flops, hbm_bw=balance.hbm_bw,
                 f32_flops=balance.f32_flops,
             )
-            # the roofline estimate; measured and interpolated costs belong
-            # to the tuner
-            t_cand, source, block = est.t_total_s, "roofline", None
+            t_cand, source, block = _candidate_time(
+                table, m, k, n, mode, cand_impl, depth, est)
             if batch > 1:
                 est = CostEstimate(
                     flops=est.flops * batch,
@@ -366,7 +482,9 @@ def plan_matmul(
     why.append(f"impl {chosen_impl}" + (" pinned" if impl is not None else " by cost"))
     why.append(f"depth {chosen_depth} by cost" if chosen_depth or max_depth
                else "depth 0 (disabled)")
-    why.append(f"cost {source} ({balance.source})")
+    why.append(f"cost {source} ("
+               + (f"table {table.fingerprint[:8]}, " if table is not None else "")
+               + f"{balance.source})")
     plan = Plan(
         shape_a=shape_a,
         shape_b=shape_b,

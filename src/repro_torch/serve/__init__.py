@@ -14,8 +14,9 @@
 
 ``ServeEngine(model, params, config=ServeConfig(...))`` is the documented
 construction path.  ``AdaptConfig(slo=...)`` closes the runtime-precision
-loop (repro_torch.adapt).  Speculation, paged layouts, per-tenant adaptation
-and trace export are not ported yet and raise NotImplementedError.
+loop (repro_torch.adapt); ``spec=SpecConfig(...)`` decodes self-speculatively
+(repro_torch.spec).  Paged layouts, per-tenant adaptation and trace export
+are not ported yet and raise NotImplementedError.
 """
 from repro_torch.serve.config import (  # noqa: F401
     AdaptConfig,

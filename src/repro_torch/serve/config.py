@@ -13,8 +13,8 @@ subsystems.  This module groups them:
 path; the legacy flat kwargs remain as a deprecation shim that calls
 :meth:`ServeConfig.from_kwargs`, and ``launch/serve.py`` builds its config
 via :meth:`ServeConfig.from_flags`.  Features that are not ported yet
-(speculation, paged layouts, page tiers, trace export) are accepted here as
-values and refused by the engine or by ``from_flags`` with the ROADMAP item.
+(paged layouts, page tiers, trace export) are accepted here as values and
+refused by the engine or by ``from_flags`` with the ROADMAP item.
 Everything is frozen: a config is a value, shareable across engines and safe
 to put in test parametrizations.
 """
@@ -160,9 +160,10 @@ class ServeConfig:
             slo = SLO(max_err=args.slo_err, target_ms=args.slo_ms or None)
         speculate = None
         if args.speculate:
-            raise NotImplementedError(
-                "--speculate: self-speculative decoding is not ported yet "
-                "(ROADMAP Queue A item 7)")
+            from repro_torch.spec import SpecConfig
+
+            speculate = SpecConfig(k=args.draft_k,
+                                   draft_shift=args.draft_shift)
         if getattr(args, "tier_levels", ""):
             raise NotImplementedError(
                 "--tier-levels: precision-tiered pages are not ported yet "

@@ -29,13 +29,19 @@ table bound: every weight GEMM then goes through the mode-map kernel, which
 reads its mode as data, so shifting the table builds nothing
 (``kernel_build_count`` stays 1).
 
+With ``spec=SpecConfig(...)`` the decode phase runs self-speculative rounds
+(repro_torch.spec): the cheap end of the mode ladder drafts ``k`` tokens per
+slot through the mode-map kernel, the exact baseline step verifies all
+``k+1`` positions, and a rollback-select restores each slot to its accepted
+prefix — outputs stay identical to this engine's plain greedy decode.
+
 The host waits for the device only where the reference does: once per
-decode step (the produced tokens), once per prefill (the first token), once
-per probe (the two residuals).
+decode step (the produced tokens), once per speculative round (drafts,
+verify tokens and acceptance together), once per prefill (the first token),
+once per probe (the two residuals).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-``speculate=``, per-tenant adaptation (``tenants=`` with ``slo=``), paged
-cache layouts.
+per-tenant adaptation (``tenants=`` with ``slo=``), paged cache layouts.
 """
 from __future__ import annotations
 
@@ -172,10 +178,9 @@ class ServeEngine:
                 "ServeEngine only implements greedy decoding: temperature "
                 "sampling is not wired into the masked step / prefill. "
                 "Pass greedy=True.")
-        if cfg.spec is not None:
-            raise _not_ported("speculate= (self-speculative decoding)",
-                            "Queue A item 7")
         if slo is not None and sch.tenants is not None:
+            # per-tenant tables would also need per-slot mode binding inside
+            # the speculative round; with speculate= this raises all the same
             raise _not_ported("per-tenant adaptation (tenants= with slo=)",
                             "Queue A item 9, 'Multi-tenant engine paths'")
         self.device = model.device
@@ -207,10 +212,6 @@ class ServeEngine:
                 for op, p in plans.items()
             }
         else:
-            if cfg.tune_table not in (None, False):
-                from repro_torch.plan.planner import _resolve_tune_table
-
-                _resolve_tune_table(cfg.tune_table, "gpu")  # raises: not ported
             self.model_decode = self.model_prefill = model
             self.phase_plans = {}
             self.plans = {}
@@ -268,7 +269,43 @@ class ServeEngine:
         else:
             self.mode_table = None
             self.controller = None
+        # -- self-speculative decoding (repro_torch.spec) --------------------
         self.spec = None
+        if cfg.spec is not None:
+            self._init_spec(cfg.spec)
+
+    def _init_spec(self, spec) -> None:
+        """Wire the speculative round: the verify table is the engine's live
+        adaptive table when ``slo`` is set (so the SLO controller keeps
+        owning output quality) or the planner/policy decode modes otherwise;
+        the draft table is that table shifted ``draft_shift`` rungs down,
+        retuned at run time by the acceptance controller."""
+        from repro_torch.adapt import ModeTable
+        from repro_torch.spec import AcceptanceController, SpecConfig
+        from repro_torch.spec.rollout import build_spec_round
+
+        if not isinstance(spec, SpecConfig):
+            raise TypeError(
+                f"speculate must be a repro_torch.spec.SpecConfig, got {type(spec)}")
+        self.spec = spec
+        if self.mode_table is not None:
+            self._spec_table = self.mode_table  # adaptive verify (slo path)
+        elif self.phase_plans:
+            self._spec_table = ModeTable.from_plans(self.phase_plans["decode"])
+        else:
+            self._spec_table = ModeTable.from_policy(self.model_decode.cfg.policy)
+        ladder = int(self._spec_table.max_mode) - int(self._spec_table.min_mode)
+        self._draft_shift = max(1, min(spec.draft_shift, max(ladder, 1)))
+        self._accept_ctrl = (
+            AcceptanceController(spec, ladder, shift=self._draft_shift)
+            if spec.adapt and ladder > 0 else None)
+        if self._accept_ctrl is not None:
+            self._accept_ctrl.controller.tracer = self.tracer
+            self._accept_ctrl.controller.name = "accept"
+        self._spec_round = build_spec_round(
+            self.model_decode, self._axes, spec.k,
+            modal_verify=self.slo is not None)
+        self._spec_window = [0, 0]  # (drafted, agreed) since last tick
 
     # -- the steps -------------------------------------------------------------
 
@@ -367,7 +404,10 @@ class ServeEngine:
             events.append((ticket.rid, first))
             self._emit(ticket, slot, first)
         if self._active.any():
-            events.extend(self._decode_step())
+            if self.spec is not None:
+                events.extend(self._spec_step())
+            else:
+                events.extend(self._decode_step())
             if (self.slo is not None
                     and self.metrics.decode_steps % self.adapt_every == 0
                     and self._active.any()):
@@ -431,7 +471,7 @@ class ServeEngine:
         return tokens, active
 
     def _decode_step(self) -> list[tuple[int, int]]:
-        """One masked batched decode step."""
+        """One masked batched decode step (the non-speculative path)."""
         events: list[tuple[int, int]] = []
         tokens, active = self._device_inputs()
         tenant_active = self._tenant_active()
@@ -460,6 +500,97 @@ class ServeEngine:
             events.append((ticket.rid, tok))
             self._emit(ticket, int(slot), tok)
         return events
+
+    def _spec_step(self) -> list[tuple[int, int]]:
+        """One speculative round: draft k cheap tokens per slot, verify all
+        k+1 positions with the exact baseline step, emit each slot's
+        accepted prefix plus the correction token (clamped to its remaining
+        decode budget); the round rolls the state back on the device."""
+        events: list[tuple[int, int]] = []
+        active_np = self._active.copy()
+        tokens, active = self._device_inputs()
+        k = self.spec.k
+        t0 = time.perf_counter()
+        drafts, greedy, n_acc, self.state = self._spec_round(
+            self.params, tokens, self.state, active,
+            self._spec_table.scalars_shifted(-self.draft_shift),
+            self._spec_table.scalars(),
+        )
+        # (k, B) drafts, (k+1, B) verify tokens, (B,) acceptance: one sync
+        host = torch.cat([drafts, greedy, n_acc[None]]).cpu().numpy()
+        drafts, greedy, n_acc = host[:k], host[k:2 * k + 1], host[2 * k + 1]
+        self._last_step_ms = (time.perf_counter() - t0) * 1e3
+        n_active = int(active_np.sum())
+        self.metrics.on_decode_step(
+            n_active,
+            mode=(self.mode_table.label() if self.mode_table is not None
+                  else self._static_decode_label),
+            tenant_active=self._tenant_active(),
+        )
+        accepted = agreed = emitted = 0
+        for slot in np.nonzero(active_np)[0]:
+            ticket = self.scheduler.by_slot[int(slot)]
+            j = int(n_acc[slot])
+            # the rolled-back cache holds the accepted prefix + correction
+            # (budget clamping truncates *emission*, not the cache)
+            self._row_len[slot] += j + 1
+            # two accounts: metrics credit only drafts that were *emitted*
+            # (a budget-truncated tail did no useful work), while the
+            # controller sees raw draft/verify *agreement* — truncation says
+            # nothing about draft quality and must not read as rejection
+            agreed += j
+            accepted += min(j, ticket.remaining)
+            burst = [int(drafts[i, slot]) for i in range(j)]
+            burst.append(int(greedy[j, slot]))  # correction / bonus token
+            for tok in burst[:ticket.remaining]:
+                events.append((ticket.rid, tok))
+                self._emit(ticket, int(slot), tok)
+                emitted += 1
+        self._last_step_tokens = emitted / n_active if n_active else 1.0
+        self.metrics.on_spec_round(
+            n_active, drafted=k * n_active, accepted=accepted, emitted=emitted)
+        if self.tracer.enabled:
+            from repro_torch.spec.rollout import trace_round
+
+            trace_round(self.tracer, k=k, n_active=n_active, agreed=agreed,
+                        emitted=emitted, dur_ms=self._last_step_ms)
+            self.tracer.set_gauge("active_slots", n_active)
+        self._spec_window[0] += k * n_active
+        self._spec_window[1] += agreed
+        if (self._accept_ctrl is not None
+                and self.metrics.spec_rounds % self.spec.every == 0):
+            self._spec_adapt_tick()
+        return events
+
+    def _spec_adapt_tick(self) -> None:
+        """Feed the windowed draft/verify disagreement rate to the
+        acceptance controller; an applied decision moves ``draft_shift``
+        one rung (repro_torch.spec)."""
+        drafted, agreed = self._spec_window
+        if not drafted:
+            return
+        self._spec_window = [0, 0]
+        before = self._accept_ctrl.shift
+        self._accept_ctrl.observe(
+            self.metrics.spec_rounds, 1.0 - agreed / drafted)
+        if self._accept_ctrl.shift != before:
+            self.metrics.on_draft_shift(
+                self.metrics.spec_rounds, self._accept_ctrl.shift)
+            if self.tracer.enabled:
+                self.tracer.emit(
+                    "draft_shift", shift=self._accept_ctrl.shift,
+                    cause=self._accept_ctrl.controller.last_cause,
+                    reject_rate=1.0 - agreed / drafted)
+                self.tracer.inc("draft_shifts")
+
+    @property
+    def draft_shift(self) -> int:
+        """Current rungs between the verify and draft tables (repro_torch.spec)."""
+        if self.spec is None:
+            raise AttributeError("engine was built without speculate=")
+        if self._accept_ctrl is not None:
+            return self._accept_ctrl.shift
+        return self._draft_shift
 
     def _adapt_tick(self) -> None:
         """One probe + controller observation; applies the shift when
@@ -548,7 +679,7 @@ class ServeEngine:
         out = {
             "plans": self._describe_plans(),
             "adaptation": self._describe_adaptation(),
-            "speculation": "speculation off (not ported yet)",
+            "speculation": self._describe_speculation(),
             "tenancy": self._describe_tenancy(),
             "cache": self.layout.describe(),
         }
@@ -563,6 +694,9 @@ class ServeEngine:
 
     def describe_plans(self) -> str:
         return self.describe()["plans"]
+
+    def describe_speculation(self) -> str:
+        return self.describe()["speculation"]
 
     def describe_tenancy(self) -> str:
         return self.describe()["tenancy"]
@@ -592,6 +726,35 @@ class ServeEngine:
         """The reference's name for ``kernel_build_count``: there is no
         trace cache behind the port's decode step."""
         return self.kernel_build_count
+
+    @property
+    def spec_compile_count(self) -> int | None:
+        """The reference's count of compiled speculative-round variants, in
+        the port the kernel-library build count (None without
+        ``speculate=``): a draft-shift or mode-table change builds nothing."""
+        if self.spec is None:
+            return None
+        return self.kernel_build_count
+
+    def _describe_speculation(self) -> str:
+        if self.spec is None:
+            return "speculation off (no speculate=)"
+        s = self.metrics.summary()
+        acc = s["acceptance_rate"]
+        vspt = s["verify_steps_per_token"]
+        ctrl = ""
+        if self._accept_ctrl is not None:
+            ctrl = (f" | {self._accept_ctrl.shallower_moves} shallower / "
+                    f"{self._accept_ctrl.deeper_moves} deeper moves")
+        return (
+            f"k={self.spec.k} draft_shift={self.draft_shift} "
+            f"(verify {self._spec_table.describe()}) | "
+            f"{s['spec_rounds']} rounds | acceptance "
+            + (f"{acc:.2f}" if acc is not None else "-")
+            + " | verify-steps/token "
+            + (f"{vspt:.2f}" if vspt is not None else "-")
+            + ctrl
+        )
 
     def _describe_tenancy(self) -> str:
         """Scheduler configuration + per-tenant fairness report."""

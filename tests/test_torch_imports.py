@@ -63,7 +63,9 @@ def test_the_package_has_the_modules_of_the_slice():
                  "models.layers", "models.lm", "adapt.controller", "adapt.probe",
                  "adapt.runtime_policy", "obs.tracer", "serve.engine", "serve.scheduler",
                  "serve.tenancy", "serve.metrics", "serve.config", "serve.paged",
-                 "launch.serve", "convert", "configs.qwen1_5_0_5b"):
+                 "launch.serve", "convert", "configs.qwen1_5_0_5b",
+                 "tune", "tune.table", "tune.runner", "tune.__main__",
+                 "spec", "spec.config", "spec.rollout"):
         assert f"repro_torch.{want}" in MODULES, want
 
 
@@ -91,7 +93,8 @@ def test_source_names_neither_jax_nor_the_reference(rel):
 def test_kernel_sources_keep_torch_headers_out():
     csrc = os.path.join(SRC, "repro_torch", "csrc")
     names = sorted(os.listdir(csrc))
-    assert {"limb_matmul.cu", "tile_matmul.cu", "quantize_mantissa.cu"} <= set(names)
+    assert {"limb_matmul.cu", "tile_matmul.cu", "quantize_mantissa.cu",
+            "limb_matmul_dd.cu"} <= set(names)
     for name in names:
         with open(os.path.join(csrc, name)) as fh:
             text = fh.read()

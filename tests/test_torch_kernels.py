@@ -1,16 +1,21 @@
-"""Port vs reference, the three kernel modules.  The JAX wrappers run their
+"""Port vs reference, the four kernel modules.  The JAX wrappers run their
 Pallas kernels in interpret mode; the port's wrappers get CPU tensors and so
 run their plain PyTorch versions (the CUDA kernels themselves are held
 against these plain versions on the card by ``chip_smoke.py``).
 
 Tolerances: matmuls 2e-6 of the result scale — the bound the reference holds
-its own kernels to (K-tiling reorders the f32 accumulation); quantize and
-every in-port identity bitwise."""
+its own kernels to (K-tiling reorders the f32 accumulation); the double-f32
+kernel 2^-22 of the result scale against an f64 product (the reference's
+bound, ``tests/test_kernels.py``) with |lo| < 2^-20 max|hi|, and the two
+packages' (hi + lo) within 2^-22 of each other (each sums a slab's products
+in its own order: measured gap about 1e-7 of scale); quantize and every
+in-port identity bitwise."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.kernels.limb_matmul.limb_matmul import limb_matmul_dd_pallas as j_limb_matmul_dd
 from repro.kernels.limb_matmul.ops import limb_matmul as j_limb_matmul
 from repro.kernels.quantize_mantissa.ops import quantize_mantissa_op as j_quant_op
 from repro.kernels.tile_matmul import ops as j_tile
@@ -18,7 +23,14 @@ from repro.kernels.tile_matmul.tile_policy import magnitude_map as j_magnitude_m
 
 from repro_torch.core.precision import F32_MODES, MODE_LIMBS, Mode
 from repro_torch.kernels import build
-from repro_torch.kernels.limb_matmul.ops import limb_matmul, limb_matmul_plain
+from repro_torch.kernels.limb_matmul import ops as limb_ops
+from repro_torch.kernels.limb_matmul.ops import (
+    dd_fold_step,
+    limb_matmul,
+    limb_matmul_dd,
+    limb_matmul_dd_plain,
+    limb_matmul_plain,
+)
 from repro_torch.kernels.limb_matmul.ref import limb_matmul_ref
 from repro_torch.kernels.quantize_mantissa.ops import quantize_mantissa_op
 from repro_torch.kernels.quantize_mantissa.ref import quantize_mantissa_ref
@@ -38,6 +50,8 @@ from repro_torch.kernels.tile_matmul.tile_policy import (
 
 BLK = dict(bm=32, bn=32, bk=64)
 TOL = 2e-6
+DD_F64_TOL = 2.0**-22
+DD_LO_RATIO = 2.0**-20
 
 
 def _ab(rng, m, kd, n):
@@ -137,6 +151,64 @@ class TestLimbMatmul:
         before = build.launch_counts()
         limb_matmul(_t(a), _t(b), 2)
         assert build.launch_counts() == before and build.BUILD_COUNT == 0
+
+
+def _dd_checks(hi, lo, a, b):
+    """(hi + lo) against an f64 product, over the result's scale, and |lo|
+    against max|hi|: the reference's two bounds for its own kernel."""
+    hi, lo = np.asarray(hi, np.float64), np.asarray(lo, np.float64)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).max()
+    assert np.abs(hi + lo - ref).max() / scale < DD_F64_TOL
+    assert np.abs(lo).max() < np.abs(hi).max() * DD_LO_RATIO
+    return (hi + lo) / scale
+
+
+class TestLimbMatmulDD:
+    def test_vs_reference_kernel_at_its_test_shape(self, rng):
+        a, b = _ab(rng, 64, 128, 64)
+        hi, lo = limb_matmul_dd(_t(a), _t(b), 3, **BLK)
+        j_hi, j_lo = j_limb_matmul_dd(jnp.asarray(a), jnp.asarray(b), 3,
+                                      interpret=True, **BLK)
+        got = _dd_checks(hi.numpy(), lo.numpy(), a, b)
+        want = _dd_checks(np.asarray(j_hi), np.asarray(j_lo), a, b)
+        assert np.abs(got - want).max() < DD_F64_TOL
+
+    @pytest.mark.parametrize("k,m,kd,n", [(4, 64, 256, 64), (6, 32, 192, 48),
+                                          (4, 17, 33, 9), (6, 17, 33, 9)])
+    def test_against_f64(self, rng, k, m, kd, n):
+        a, b = _ab(rng, m, kd, n)
+        hi, lo = limb_matmul_dd(_t(a), _t(b), k, bm=32, bn=32, bk=64)
+        _dd_checks(hi.numpy(), lo.numpy(), a, b)
+
+    def test_fold_step_is_the_kernel_grain_and_both_grains_agree(self, rng):
+        a, b = _ab(rng, 16, 256, 24)
+        slab = limb_matmul_dd_plain(_t(a), _t(b), 4, bk=128)
+        fine = limb_matmul_dd_plain(_t(a), _t(b), 4, bk=128, fold=dd_fold_step(4))
+        assert (dd_fold_step(3), dd_fold_step(4), dd_fold_step(6)) == (64, 32, 32)
+        assert torch.equal(limb_matmul_dd(_t(a), _t(b), 4, bk=128)[0], slab[0])
+        got = _dd_checks(fine[0].numpy(), fine[1].numpy(), a, b)
+        want = _dd_checks(slab[0].numpy(), slab[1].numpy(), a, b)
+        assert np.abs(got - want).max() < DD_F64_TOL
+
+    def test_more_accurate_than_the_f32_limb_kernel(self, rng):
+        a, b = _ab(rng, 32, 1024, 32)
+        ref = a.astype(np.float64) @ b.astype(np.float64)
+        hi, lo = limb_matmul_dd(_t(a), _t(b), 3, bk=64)
+        dd_err = np.abs(hi.numpy().astype(np.float64) + lo.numpy() - ref).max()
+        f32_err = np.abs(limb_matmul(_t(a), _t(b), 3, bk=64).numpy() - ref).max()
+        assert dd_err < f32_err
+
+    def test_cuda_branch_checks_operands_before_building(self, rng):
+        a, b = _ab(rng, 8, 16, 8)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            limb_ops._launch_dd(_t(a), _t(b), 4, 8, 8, 16)
+        with pytest.raises(ValueError, match="2-D operands"):
+            limb_matmul_dd(_t(a)[None], _t(b))
+        assert build.BUILD_COUNT == 0
+        before = build.launch_counts()
+        limb_matmul_dd(_t(a), _t(b), 4)
+        assert build.launch_counts() == before and before["limb_matmul_dd"] == 0
 
 
 class TestTileMatmul:

@@ -340,8 +340,15 @@ class TestPlanSelection:
 
     @pytest.mark.parametrize("table", ["tuning/cpu.json", object()])
     def test_tune_table_waits_for_the_tuner(self, table):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-            plan_matmul((64, 64), (64, 64), backend="cpu", tune_table=table)
+        # the tuner is ported: a table path plans from the measurements,
+        # anything that is no table is refused
+        if isinstance(table, str):
+            p = plan_matmul((256, 256), (256, 256), accuracy=2**-4, backend="cpu",
+                            tune_table=table)
+            assert p.source == "measured" and "(table " in p.reason
+        else:
+            with pytest.raises(TypeError, match="tune_table must be"):
+                plan_matmul((64, 64), (64, 64), backend="cpu", tune_table=table)
         assert plan_matmul((64, 64), (64, 64), backend="cpu", tune_table=False).impl == "xla"
 
     def test_doctest(self):

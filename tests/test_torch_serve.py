@@ -41,6 +41,7 @@ from repro_torch.serve import (
 )
 from repro_torch.serve.engine import row_select
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.spec import SpecConfig
 
 from test_torch_common import CACHE_FLIP_SHARE, CACHE_QUANTUM, FACTOR, make_pair
 
@@ -429,8 +430,9 @@ class TestNotPortedYet:
     def test_engine_options(self, tiny):
         model, params = tiny
         base = dict(batch_slots=2, max_len=16)
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            ServeEngine(model, params, config=ServeConfig(spec=object(), **base))
+        with pytest.raises(NotImplementedError, match="Queue A item 8"):
+            ServeEngine(model, params, config=ServeConfig(
+                spec=SpecConfig(), cache=CacheConfig(layout="paged"), **base))
         with pytest.raises(NotImplementedError, match="Queue A item 9"):
             ServeEngine(model, params, config=ServeConfig(
                 adapt=AdaptConfig(slo=SLO(max_err=0.1)),
@@ -438,19 +440,17 @@ class TestNotPortedYet:
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
             ServeEngine(model, params, config=ServeConfig(
                 cache=CacheConfig(layout="paged"), **base))
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
-            ServeEngine(model, params, config=ServeConfig(tune_table="tuning/cpu.json", **base))
         with pytest.raises(NotImplementedError, match="greedy"):
             ServeEngine(model, params, config=ServeConfig(greedy=False, **base))
         with pytest.raises(ValueError, match="not both"):
             ServeEngine(model, params, batch_slots=2, config=ServeConfig(**base))
 
     @pytest.mark.parametrize("flags,match", [
-        (["--speculate"], "Queue A item 7"),
+        (["--speculate", "--paged"], "Queue A item 8"),
         (["--paged"], "Queue A item 8"),
         (["--tier-levels", "bf16,int8"], "Queue A item 8"),
         (["--trace-out", "t.json"], "Queue A item 10"),
-        (["--tune-table", "tuning/cpu.json", "--accuracy", "1e-3"], "Queue A item 3"),
+        (["--multi-tenant", "--adapt"], "Queue A item 9"),
     ])
     def test_launcher_flags_are_parsed_and_refused(self, flags, match):
         with pytest.raises(NotImplementedError, match=match):
@@ -466,11 +466,11 @@ def test_launcher_main_serves_on_the_cpu_when_asked(capsys):
     launch_serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
                        "--requests", "3", "--slots", "2", "--max-new", "4",
                        "--prompt-len", "8", "--accuracy", "2e-4", "--adapt",
-                       "--adapt-every", "2"])
+                       "--adapt-every", "2", "--tune-table", "tuning/cpu.json"])
     out = capsys.readouterr().out
     assert "req 0:" in out and "req 2:" in out
     assert "decode/mlp_up" in out and "kernel library builds: 0" in out
-    assert "tok/s on cpu" in out
+    assert "tok/s on cpu" in out and "(table " in out
 
 
 def test_launcher_main_defaults_to_the_gpu():
