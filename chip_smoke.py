@@ -7,7 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 It builds the four CUDA kernels from ``src/repro_torch/csrc`` (once), holds
 each against its plain PyTorch version on the card at the shapes its path
-gives it, times them beside their bound, then serves ``qwen1.5-0.5b`` at
+gives it (the limb and mode-map kernels at the K split ``split_k`` plans,
+which it prints per shape, and unsplit), times them beside their bound, then
+serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
 table, and serves self-speculatively beside a plain arm, checking what comes
@@ -43,11 +45,14 @@ from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
-    dd_fold_step,
+    k_step,
+    k_walk,
     limb_matmul,
     limb_matmul_dd,
     limb_matmul_dd_plain,
     limb_matmul_plain,
+    resolve_splits,
+    split_ranges,
     tile_grid,
 )
 from repro_torch.kernels.quantize_mantissa.ops import (  # noqa: E402
@@ -253,13 +258,32 @@ def _mixed_map(grid, gen_cpu, kmax=3):
     return torch.randint(1, kmax + 1, grid, generator=gen_cpu, dtype=torch.int32).cuda()
 
 
+def planned_splits(m: int, k: int, n: int, limbs: int = 3, **blk) -> int:
+    """The K split count the limb and mode-map wrappers run at on this card
+    for (m, k, n) at the blocks ``blk`` (default: the wrappers')."""
+    _, (bm, bn, bk) = tile_grid(m, n, k, **blk)
+    return resolve_splits(None, torch.device("cuda", torch.cuda.current_device()), m, n, k,
+                          bm=bm, bn=bn, bk=bk, tk=k_step(limbs))
+
+
 def check_kernels(gen) -> dict:
-    """Hold every kernel against its plain version on the card."""
+    """Hold every kernel against its plain version on the card, the limb and
+    mode-map kernels at the K split they run at (``split_k``) and the plain
+    versions summing the same per-split partials in the same order."""
     gen_cpu = torch.Generator().manual_seed(7)
     worst = {"quantize_mantissa": 0.0, "limb_matmul": 0.0, "tile_matmul": 0.0}
     worst_abs = dict(worst)
     n_cases = 0
     shapes = [(m, k, n) for m in MAIN_M for (k, n) in MAIN_KN] + [(17, 33, 9)]
+    splits = {}
+    unsplit_vs_split = 0.0
+
+    def hold(name, got, want, what):
+        abs_err, err = _errs(got, want)
+        worst[name] = max(worst[name], err)
+        worst_abs[name] = max(worst_abs[name], abs_err)
+        check(err <= MATMUL_TOL, f"{name} {what}: {err:.3e} > {MATMUL_TOL}")
+
     # quantize: bit-exact, three roundings x keep {7, 15}, with specials
     for shape in ((4, 1024), (48, 2816), (1024, 2816), (17, 33)):
         x = _rand(gen, *shape)
@@ -273,47 +297,72 @@ def check_kernels(gen) -> dict:
                 same = torch.equal(got.view(torch.int32), want.view(torch.int32))
                 check(same, f"quantize_mantissa {shape} {rounding} keep={keep} not bit-exact")
                 n_cases += 1
-    for m, k, n in shapes:
+    # the serving shapes at the default blocks, then two ragged split layouts:
+    # bk = 720 (not a multiple of TK = 64) puts a split boundary inside the
+    # ragged last slab of K = 2816; bk = 16 < TK makes every step a slab
+    cases = [(m, k, n, {}) for m, k, n in shapes] + [
+        (4, 2816, 1024, dict(bk=720)), (17, 33, 9, dict(bm=16, bn=16, bk=16))]
+    for m, k, n, blk in cases:
         a, b = _rand(gen, m, k), _rand(gen, k, n)
-        grid, (bm, bn, bk) = tile_grid(m, n, k)
+        grid, (bm, bn, bk) = tile_grid(m, n, k, **blk)
+        s = planned_splits(m, k, n, **blk)
+        splits[f"{m}x{k}x{n}" + (f" {blk}" if blk else "")] = s
+        if m == MAIN_M[0] and not blk:
+            check(s > 1, f"no K split at the decode shape {(m, k, n)}")
+        if blk.get("bk") == 720:
+            walk = k_walk(k, bk, k_step(3))
+            last = walk[-1][0]
+            check(any(walk[t0 - 1][0] == walk[t0][0] == last
+                      for t0, _ in split_ranges(len(walk), s)[1:]),
+                  f"no split boundary inside the last slab at {(m, k, n)} bk={bk} S={s}")
         for limbs in (1, 2, 3):
-            got = limb_matmul(a, b, limbs)
+            got = limb_matmul(a, b, limbs, **blk)
+            again = limb_matmul(a, b, limbs, **blk)
             torch.cuda.synchronize()
-            want = limb_matmul_plain(a, b, limbs, bk=bk)
-            abs_err, err = _errs(got, want)
-            worst["limb_matmul"] = max(worst["limb_matmul"], err)
-            worst_abs["limb_matmul"] = max(worst_abs["limb_matmul"], abs_err)
-            check(err <= MATMUL_TOL, f"limb_matmul {(m, k, n)} k={limbs}: {err:.3e} > {MATMUL_TOL}")
+            check(torch.equal(got, again), f"two limb_matmul calls differ at {(m, k, n)} k={limbs}")
+            hold("limb_matmul", got, limb_matmul_plain(a, b, limbs, bk=bk, splits=s),
+                 f"{(m, k, n)} {blk} k={limbs} S={s}")
             # uniform map == limb kernel, and runtime == static: bitwise
-            uni = tile_matmul_mode(a, b, Mode(limbs))
-            rt_host = tile_matmul_runtime(a, b, limbs)
-            rt_dev = tile_matmul_runtime(a, b, torch.tensor(limbs, dtype=torch.int32, device="cuda"))
+            uni = tile_matmul_mode(a, b, Mode(limbs), **blk)
+            rt_host = tile_matmul_runtime(a, b, limbs, **blk)
+            rt_dev = tile_matmul_runtime(
+                a, b, torch.tensor(limbs, dtype=torch.int32, device="cuda"), **blk)
             torch.cuda.synchronize()
             check(torch.equal(uni, got), f"uniform map != limb kernel at {(m, k, n)} k={limbs}")
             check(torch.equal(rt_host, uni), f"runtime(host int) != static at {(m, k, n)} mode={limbs}")
             check(torch.equal(rt_dev, uni), f"runtime(device scalar) != static at {(m, k, n)} mode={limbs}")
-            n_cases += 4
-        # mixed maps, 2-D and 3-D, against the plain version
+            n_cases += 5
+        # mixed maps, 2-D and 3-D, against the plain version; twice, bitwise
         for shape in (grid[:2], grid):
             mode_map = _mixed_map(shape, gen_cpu)
-            got = tile_matmul(a, b, mode_map)
+            got = tile_matmul(a, b, mode_map, **blk)
+            again = tile_matmul(a, b, mode_map, **blk)
             torch.cuda.synchronize()
-            want = tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk)
-            abs_err, err = _errs(got, want)
-            worst["tile_matmul"] = max(worst["tile_matmul"], err)
-            worst_abs["tile_matmul"] = max(worst_abs["tile_matmul"], abs_err)
-            check(err <= MATMUL_TOL, f"tile_matmul {(m, k, n)} map{tuple(shape)}: {err:.3e}")
-            n_cases += 1
+            check(torch.equal(got, again), f"two tile_matmul calls differ at {(m, k, n)}")
+            hold("tile_matmul", got,
+                 tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk, splits=s),
+                 f"{(m, k, n)} {blk} map{tuple(shape)} S={s}")
+            n_cases += 2
+        # the unsplit layout still holds: against its plain version and
+        # against the planned split, and uniform == limb at one split too
+        one = limb_matmul(a, b, 3, splits=1, **blk)
+        torch.cuda.synchronize()
+        hold("limb_matmul", one, limb_matmul_plain(a, b, 3, bk=bk), f"{(m, k, n)} {blk} S=1")
+        _, err = _errs(one, limb_matmul(a, b, 3, **blk))
+        unsplit_vs_split = max(unsplit_vs_split, err)
+        check(err <= MATMUL_TOL, f"limb_matmul {(m, k, n)} {blk}: S=1 vs S={s} {err:.3e}")
+        check(torch.equal(tile_matmul_mode(a, b, Mode.M24, splits=1, **blk), one),
+              f"uniform map != limb kernel at {(m, k, n)} S=1")
+        n_cases += 3
     # a finer map grid than the default, so one launch holds many map tiles
     a, b = _rand(gen, 48, 1024), _rand(gen, 1024, 1024)
     grid, (bm, bn, bk) = tile_grid(48, 1024, 1024, bm=16, bn=64, bk=128)
     mode_map = _mixed_map(grid, gen_cpu)
-    got = tile_matmul(a, b, mode_map, bm=16, bn=64, bk=128)
-    want = tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk)
-    abs_err, err = _errs(got, want)
-    worst["tile_matmul"] = max(worst["tile_matmul"], err)
-    worst_abs["tile_matmul"] = max(worst_abs["tile_matmul"], abs_err)
-    check(err <= MATMUL_TOL, f"tile_matmul fine 3-D map: {err:.3e}")
+    s = planned_splits(48, 1024, 1024, bm=16, bn=64, bk=128)
+    splits["48x1024x1024 fine map"] = s
+    hold("tile_matmul", tile_matmul(a, b, mode_map, bm=16, bn=64, bk=128),
+         tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk, splits=s),
+         f"fine 3-D map S={s}")
     # ladder: error against f64 falls strictly k = 1 > 2 > 3
     a, b = _rand(gen, 48, 1024), _rand(gen, 1024, 2816)
     exact = a.double() @ b.double()
@@ -325,7 +374,8 @@ def check_kernels(gen) -> dict:
                       tile_matmul_mode(a, b, Mode.M16, rounding="grte")),
           "grte: uniform map != limb kernel")
     return {"cases": n_cases + 4, "max_rel_err": worst, "max_abs_err": worst_abs,
-            "ladder_rel_err": ladder}
+            "ladder_rel_err": ladder, "splits": splits,
+            "unsplit_vs_split_rel_err": unsplit_vs_split}
 
 
 def check_dd(gen) -> dict:
@@ -338,7 +388,7 @@ def check_dd(gen) -> dict:
         hi, lo = limb_matmul_dd(a, b, limbs)
         torch.cuda.synchronize()
         _, (_, _, bk) = tile_grid(m, n, k)
-        p_hi, p_lo = limb_matmul_dd_plain(a, b, limbs, bk=bk, fold=dd_fold_step(limbs))
+        p_hi, p_lo = limb_matmul_dd_plain(a, b, limbs, bk=bk, fold=k_step(limbs))
         exact = a.double() @ b.double()
         scale = float(exact.abs().max())
         got = hi.double() + lo.double()
@@ -397,14 +447,14 @@ def time_dd(gen) -> list[dict]:
         bs = [_rand(gen, k, n) for _ in range(n_rot)]
         a64, bs64 = a.double(), [x.double() for x in bs]
         _, (_, _, bk) = tile_grid(m, n, k)
-        step = dd_fold_step(limbs)
+        step = k_step(limbs)
         bound, by = gemm_bound_ms(m, k, n, len(limb_product_terms(limbs)), outputs=2)
         ms, enqueue = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs), n_rot)
         plain, _ = time_ms(lambda i: limb_matmul_dd_plain(a, bs[i], limbs, bk=bk, fold=step),
                            n_rot, warmup=1, reps=2, samples=3)
         lib32, _ = time_ms(lambda i: torch.matmul(a, bs[i]), n_rot)
         lib64, _ = time_ms(lambda i: torch.matmul(a64, bs64[i]), n_rot)
-        rows.append(dict(kernel="limb_matmul_dd", m=m, k=k, n=n, limbs=limbs, ms=ms,
+        rows.append(dict(kernel="limb_matmul_dd", m=m, k=k, n=n, limbs=limbs, splits=1, ms=ms,
                          enqueue_ms=enqueue, plain_ms=plain, bound_ms=bound, bound_by=by,
                          library_ms=lib64, library_f32_ms=lib32, library_bf16_ms=None))
         del bs, bs64
@@ -413,7 +463,12 @@ def time_dd(gen) -> list[dict]:
 
 def time_kernels(gen) -> dict:
     """Time every kernel at the serving path's shapes beside its bound, its
-    plain version and the library's matmul at the same shape."""
+    plain version and the library's matmul at the same shape.  The limb and
+    mode-map kernels are timed at their planned K split and, in the same
+    run, unsplit (``splits=1``); the mode-map kernel both through
+    ``tile_matmul_runtime`` (which fills a uniform map with ``torch.full``
+    on every call) and through ``tile_matmul`` with the map built
+    beforehand (the kernel alone)."""
     rows = []
     for m in MAIN_M:
         for (k, n) in MAIN_KN:
@@ -428,19 +483,29 @@ def time_kernels(gen) -> dict:
             for limbs in (2, 3):
                 passes = len(limb_product_terms(limbs))
                 bound, by = gemm_bound_ms(m, k, n, passes)
-                common = dict(m=m, k=k, n=n, limbs=limbs, bound_ms=bound, bound_by=by,
-                              library_ms=lib32, library_bf16_ms=lib16)
+                s = planned_splits(m, k, n, limbs)
+                common = dict(m=m, k=k, n=n, limbs=limbs, splits=s, bound_ms=bound,
+                              bound_by=by, library_ms=lib32, library_bf16_ms=lib16)
                 uniform = torch.full(grid[:2], limbs, dtype=torch.int32, device="cuda")
-                ms, enqueue = time_ms(lambda i: limb_matmul(a, bs[i], limbs), n_rot)
-                plain, _ = time_ms(lambda i: limb_matmul_plain(a, bs[i], limbs, bk=bk), n_rot)
-                rows.append(dict(kernel="limb_matmul", ms=ms, enqueue_ms=enqueue,
-                                 plain_ms=plain, **common))
-                ms, enqueue = time_ms(lambda i: tile_matmul_runtime(a, bs[i], limbs), n_rot)
-                plain, _ = time_ms(
-                    lambda i: tile_matmul_plain(a, bs[i], uniform, kmax=3, bm=bm, bn=bn, bk=bk),
-                    n_rot)
-                rows.append(dict(kernel="tile_matmul", ms=ms, enqueue_ms=enqueue,
-                                 plain_ms=plain, **common))
+                plain, _ = time_ms(lambda i: limb_matmul_plain(a, bs[i], limbs, bk=bk, splits=s),
+                                   n_rot)
+                tile_plain, _ = time_ms(
+                    lambda i: tile_matmul_plain(a, bs[i], uniform, kmax=3, bm=bm, bn=bn, bk=bk,
+                                                splits=s), n_rot)
+                for kernel, via, fn, p_ms in (
+                        ("limb_matmul", "limb_matmul",
+                         lambda i, sp=None: limb_matmul(a, bs[i], limbs, splits=sp), plain),
+                        ("tile_matmul", "tile_matmul_runtime",
+                         lambda i, sp=None: tile_matmul_runtime(a, bs[i], limbs, splits=sp),
+                         tile_plain),
+                        ("tile_matmul", "tile_matmul",
+                         lambda i, sp=None: tile_matmul(a, bs[i], uniform, splits=sp),
+                         tile_plain)):
+                    ms1, enqueue1 = time_ms(lambda i: fn(i, 1), n_rot)
+                    ms, enqueue = time_ms(fn, n_rot)
+                    rows.append(dict(kernel=kernel, via=via, ms=ms, enqueue_ms=enqueue,
+                                     ms_splits1=ms1, enqueue_ms_splits1=enqueue1,
+                                     plain_ms=p_ms, **common))
             del bs, bs16
     # quantize pre-pass shapes: the activation and the weight of a site
     for shape in ((4, 1024), (1024, 2816)):
@@ -478,9 +543,13 @@ def phase_kernels(gen) -> tuple[dict, dict]:
     timing = time_kernels(gen)
     timing["rows"] += time_dd(gen)
     check(build.BUILD_COUNT == 1, "kernels were built more than once")
+    # ptxas -v per kernel: entry name, then registers / shared memory / spills
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in build.BUILD_LOG.splitlines()
+             if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     emit("kernels", build_s=build_s, build_count=build.BUILD_COUNT,
          kernels=sorted(KERNEL_INFO), tolerance=MATMUL_TOL, dd=dd, **checks,
-         kernel_ms=timing["rows"], f32_matmul_4096=timing["f32_matmul_4096"])
+         kernel_ms=timing["rows"], f32_matmul_4096=timing["f32_matmul_4096"], ptxas=ptxas,
+         sms=torch.cuda.get_device_properties(0).multi_processor_count)
     return checks, timing
 
 
@@ -837,7 +906,8 @@ def kernels_line(checks, timing, main_counts) -> dict:
     for name, info in KERNEL_INFO.items():
         rows = [r for r in timing["rows"] if r["kernel"] == name]
         m, k, n, limbs = primary[name]
-        main = next(r for r in rows if (r["m"], r["k"], r["n"], r["limbs"]) == (m, k, n, limbs))
+        at = [r for r in rows if (r["m"], r["k"], r["n"], r["limbs"]) == (m, k, n, limbs)]
+        main = next(r for r in at if r.get("via", name) == name)  # the kernel alone
         entry = {}
         if name in ENTRY_POINT_KERNELS:
             launches = checks["entry_point_launches"][name]
@@ -848,6 +918,11 @@ def kernels_line(checks, timing, main_counts) -> dict:
                          library_f32_ms=main["library_f32_ms"])
         else:
             launches = main_counts[name]
+        if "ms_splits1" in main:
+            entry.update(splits=main["splits"], ms_splits1=main["ms_splits1"])
+        runtime = [r for r in at if r.get("via") == "tile_matmul_runtime"]
+        if runtime:
+            entry.update(runtime_ms=runtime[0]["ms"], runtime_enqueue_ms=runtime[0]["enqueue_ms"])
         out.append(dict(
             name=name, **info, launches=launches,
             max_abs_err=checks["max_abs_err"][name],

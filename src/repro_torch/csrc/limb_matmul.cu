@@ -6,7 +6,10 @@
 // tiles are read once, split into limbs on chip, and all k(k+1)/2 retained
 // Karatsuba products are accumulated in f32.  The datapath, its bound and
 // its design notes are in rmpm_gemm.cuh, which this kernel shares with the
-// mode-map kernel so that the two agree bit for bit on uniform maps.
+// mode-map kernel so that the two agree bit for bit on uniform maps.  The K
+// walk is split S ways across thread blocks (deterministic split-K: partial
+// tiles in a workspace, then a fixed-order reduction on the same stream);
+// S comes from the wrapper.
 #include "rmpm_gemm.cuh"
 
 namespace {
@@ -20,33 +23,40 @@ limb_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 template <int KMAX>
-int launch(const float* a, const float* b, float* c, int m, int n, int k,
-           int bm, int bn, int bk, cudaStream_t stream) {
-  limb_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn), rmpm::THREADS, 0,
-                             stream>>>(a, b, c, m, n, k, bm, bn, bk);
-  return (int)cudaGetLastError();
+int launch(const float* a, const float* b, float* c, float* ws, int m, int n,
+           int k, int bm, int bn, int bk, int splits, cudaStream_t stream) {
+  if (!rmpm::splits_ok(splits, ws, k, bk, rmpm::Tiling<KMAX>::TK))
+    return (int)cudaErrorInvalidValue;
+  limb_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
+                             rmpm::THREADS, 0, stream>>>(
+      a, b, splits > 1 ? ws : c, m, n, k, bm, bn, bk);
+  return rmpm::finish_splits(c, ws, m, n, splits, stream);
 }
 
 }  // namespace
 
-// limbs in [1, 6]; (bm, bn, bk) as clamped by the wrapper's tile_grid.
+// limbs in [1, 6]; (bm, bn, bk) as clamped by the wrapper's tile_grid;
+// splits >= 1, and ws a float32 workspace of splits * m * n when splits > 1
+// (unused, may be null, when splits == 1).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad argument.
-extern "C" int rmpm_limb_matmul(const void* a, const void* b, void* c, int m,
-                                int n, int k, int limbs, int bm, int bn, int bk,
+extern "C" int rmpm_limb_matmul(const void* a, const void* b, void* c,
+                                void* ws, int m, int n, int k, int limbs,
+                                int bm, int bn, int bk, int splits,
                                 void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0)
     return (int)cudaErrorInvalidValue;
   const float* A = (const float*)a;
   const float* B = (const float*)b;
   float* C = (float*)c;
+  float* W = (float*)ws;
   cudaStream_t s = (cudaStream_t)stream;
   switch (limbs) {
-    case 1: return launch<1>(A, B, C, m, n, k, bm, bn, bk, s);
-    case 2: return launch<2>(A, B, C, m, n, k, bm, bn, bk, s);
-    case 3: return launch<3>(A, B, C, m, n, k, bm, bn, bk, s);
-    case 4: return launch<4>(A, B, C, m, n, k, bm, bn, bk, s);
-    case 5: return launch<5>(A, B, C, m, n, k, bm, bn, bk, s);
-    case 6: return launch<6>(A, B, C, m, n, k, bm, bn, bk, s);
+    case 1: return launch<1>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
+    case 2: return launch<2>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
+    case 3: return launch<3>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
+    case 4: return launch<4>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
+    case 5: return launch<5>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
+    case 6: return launch<6>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

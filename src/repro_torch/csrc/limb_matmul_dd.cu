@@ -21,8 +21,10 @@
 // Bound on this card: at the serving shapes (M of a few rows) the weight is
 // read once and dominates — bytes over the memory rate; for large M the
 // k(k+1)/2 passes over the bf16 tensor-core rate.  This first version is
-// the limb kernel's thread-block tile with a second accumulator; it is
-// written to be right, and its times stand beside the bound in PERF.md.
+// the limb kernel's thread-block tile with a second accumulator, run
+// unsplit (one split: a split-K variant would need a reduction that
+// combines (hi, lo) pairs with TwoSum); it is written to be right, and its
+// times stand beside the bound in PERF.md.
 #include "rmpm_gemm.cuh"
 
 namespace {

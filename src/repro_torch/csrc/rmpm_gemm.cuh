@@ -20,7 +20,8 @@
 //
 // What replaces what (TPU -> Hopper):
 //  * the sequential K grid with an accumulator carried in scratch memory
-//    becomes a loop over K inside the thread block;
+//    becomes a loop over K inside the thread block, cut into S splits that
+//    run as separate thread blocks (Split-K below);
 //  * `(bm, bn, bk)` no longer sizes the tile that is resident on chip: it is
 //    only the granularity of the mode map.  A thread block owns a
 //    TM x TN = 32 x 32 piece of ONE map tile (so it has one map entry per K
@@ -29,6 +30,23 @@
 //    entry from its own coordinates;
 //  * ragged edges are masked here (zero fill on load, guarded store), so
 //    the wrapper pads nothing.
+//
+// Split-K.  At the decode shapes (M = a few rows) the (M, N) grid alone is a
+// few dozen thread blocks on a 132-SM card, each walking all of K with one
+// step's loads in flight.  So the grid has a third dimension of S splits.
+// The K walk of a block is one ordered list of steps — for slab kk, the
+// steps k0 = kk*bk, kk*bk + TK, ... below min((kk+1)*bk, K) — and split s
+// takes its contiguous range [s*T/S, (s+1)*T/S) of the T steps.  Each step
+// keeps its slab, so the map entry of slab kk governs exactly its own steps,
+// for a ragged last slab and for bk < TK alike.  Split s writes its f32
+// partial tile to a workspace [S, M, N]; `splitk_reduce` then adds the
+// partials in the fixed order s = 0, 1, ..., S-1 with __fadd_rn and writes C.
+// No float atomics and no last-block fixup: the order of every sum is fixed
+// by the layout, never by timing, so run-to-run bits, uniform map == limb
+// kernel and runtime == static hold at every S.  With S == 1 the body writes
+// C directly and nothing else is launched: the bits of the unsplit walk.
+// The wrapper picks S (`split_k` in kernels/limb_matmul/ops.py) from the
+// problem, the blocks, TK and the SM count — never from the limb count.
 //
 // Accumulation.  The tensor core adds into its accumulator with truncation,
 // which would bias a long chain.  So each term's products over one K step
@@ -44,10 +62,11 @@
 //
 // Bound on this card: for decode shapes (M = a few rows) the weight B is
 // read once and dominates — the bound is bytes / memory rate; for large M
-// it is passes * 2MKN / bf16 tensor-core rate.  This first version keeps
-// one TK-deep register prefetch in flight and nothing more (no TMA, no
-// wgmma, no split-K): it is written to be right, and its measured times
-// stand beside the bound in PERF.md.
+// it is passes * 2MKN / bf16 tensor-core rate.  Split-K fills the card with
+// blocks (about two resident per SM); each block still keeps one TK-deep
+// register prefetch in flight and nothing more (no TMA, no wgmma), and at
+// M < 32 a warp whose 16 fragment rows lie wholly below the output skips
+// its MMAs.  Measured times stand beside the bound in PERF.md.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,8 +107,18 @@ __device__ __forceinline__ void two_sum_fold(float& s, float& c, float p) {
 
 struct NoCompensation {};
 
+// Steps of TK in the K walk of one thread block: bk slabs, TK steps in each.
+__host__ __device__ inline int k_steps(int K, int bk, int tk) {
+  const int gk = (K + bk - 1) / bk;
+  const int per_slab = (bk + tk - 1) / tk;
+  return (gk - 1) * per_slab + (K - (gk - 1) * bk + tk - 1) / tk;
+}
+
 // map == nullptr: every tile runs all KMAX-limb terms (the limb kernel).
 // map_ndim == 2: map[(i * gn + j)];  map_ndim == 3: map[(i * gn + j) * gk + kk].
+//
+// Split s = blockIdx.z of gridDim.z runs its range of the K walk and writes
+// its tile to C + s * M * N (C is the workspace when gridDim.z > 1).
 //
 // DD (compile-time): the double-f32 variant of the limb kernel.  Each
 // fragment element carries a second f32 register, the compensation, and
@@ -97,6 +126,7 @@ struct NoCompensation {};
 // of a plain add; at the end C receives hi = s + c and C_lo the rounding
 // error of that sum.  With DD == false no compensation exists and the code
 // is the plain limb datapath, so the limb and mode-map kernels are unchanged.
+// The DD variant runs with gridDim.z == 1 only: C_lo is not split.
 template <int KMAX, bool DD = false>
 __device__ __forceinline__ void rmpm_gemm_body(
     const float* __restrict__ A, const float* __restrict__ B,
@@ -128,6 +158,17 @@ __device__ __forceinline__ void rmpm_gemm_body(
   const int warp = tid >> 5;
   const int wr = (warp >> 1) * 16;  // fragment origin inside the block tile
   const int wc = (warp & 1) * 16;
+  // a warp whose 16 fragment rows all lie below the output runs no MMA: the
+  // rows it would compute are never stored (warp-uniform)
+  const bool idle = row0 + wr >= row_end;
+
+  // this split's range [t_begin, t_end) of the block's K walk; step t lies
+  // in slab t / per_slab at offset (t % per_slab) * TK
+  const int per_slab = (bk + TK - 1) / TK;
+  const int steps = k_steps(K, bk, TK);
+  const int t_begin = (int)((long long)blockIdx.z * steps / gridDim.z);
+  const int t_end = (int)((long long)(blockIdx.z + 1) * steps / gridDim.z);
+  float* const out = C + (long long)blockIdx.z * M * N;
 
   Acc acc;
   wmma::fill_fragment(acc, 0.0f);
@@ -182,19 +223,19 @@ __device__ __forceinline__ void rmpm_gemm_body(
     }
   };
 
-  for (int kk = 0; kk < gk; ++kk) {  // K slabs: the map's third axis
+  auto step_k0 = [&](int t) { return (t / per_slab) * bk + (t % per_slab) * TK; };
+  auto step_end = [&](int t) { return min((t / per_slab + 1) * bk, K); };
+  const long long e_map = (long long)ti_map * gn + tj_map;
+
+  if (t_begin < t_end) load_step(step_k0(t_begin), step_end(t_begin));
+  for (int t = t_begin; t < t_end; ++t) {
+    const int kk = t / per_slab;  // the step's slab: the map's third axis
     int k_tile = KMAX;
-    if (map != nullptr) {
-      const long long e = (long long)ti_map * gn + tj_map;
-      k_tile = (map_ndim == 3) ? map[e * gk + kk] : map[e];
-    }
-    const int k_begin = kk * bk;
-    const int k_end = min(k_begin + bk, K);
-    load_step(k_begin, k_end);
-    for (int k0 = k_begin; k0 < k_end; k0 += TK) {
-      split_step();
-      __syncthreads();
-      if (k0 + TK < k_end) load_step(k0 + TK, k_end);  // in flight during the MMAs
+    if (map != nullptr) k_tile = (map_ndim == 3) ? map[e_map * gk + kk] : map[e_map];
+    split_step();
+    __syncthreads();
+    if (t + 1 < t_end) load_step(step_k0(t + 1), step_end(t + 1));  // in flight during the MMAs
+    if (!idle) {
       // retained terms, high order first: s = ti + tj from KMAX-1 down to 0
 #pragma unroll
       for (int s = KMAX - 1; s >= 0; --s) {
@@ -226,17 +267,17 @@ __device__ __forceinline__ void rmpm_gemm_body(
           }
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
 
-  auto store = [&](const Acc& frag, float* __restrict__ out) {
+  auto store = [&](const Acc& frag, float* __restrict__ dst) {
     wmma::store_matrix_sync(&Cs[wr][wc], frag, CS_LD, wmma::mem_row_major);
     __syncthreads();
     for (int idx = tid; idx < TM * TN; idx += THREADS) {
       const int r = row0 + idx / TN;
       const int c = col0 + idx % TN;
-      if (r < row_end && c < col_end) out[(long long)r * N + c] = Cs[idx / TN][idx % TN];
+      if (r < row_end && c < col_end) dst[(long long)r * N + c] = Cs[idx / TN][idx % TN];
     }
   };
   if constexpr (DD) {
@@ -248,19 +289,55 @@ __device__ __forceinline__ void rmpm_gemm_body(
       acc.x[e] = hi;
       comp.x[e] = lo;
     }
-    store(acc, C);
+    store(acc, out);
     __syncthreads();  // every thread has read Cs before it is reused
     store(comp, C_lo);
   } else {
-    store(acc, C);
+    store(acc, out);
   }
 }
 
-// Grid of thread blocks covering every map tile of an (M, N) output.
-inline dim3 gemm_grid(int M, int N, int bm, int bn) {
+// Grid of thread blocks covering every map tile of an (M, N) output, once
+// for each of `splits` K splits.
+inline dim3 gemm_grid(int M, int N, int bm, int bn, int splits = 1) {
   const int gm = (M + bm - 1) / bm, gn = (N + bn - 1) / bn;
   const int sub_m = (bm + TM - 1) / TM, sub_n = (bn + TN - 1) / TN;
-  return dim3((unsigned)(gn * sub_n), (unsigned)(gm * sub_m), 1);
+  return dim3((unsigned)(gn * sub_n), (unsigned)(gm * sub_m), (unsigned)splits);
 }
+
+// A split count the entry points accept: 1, or up to the walk's T steps
+// (65,535 at most, the grid's z limit) with a workspace to write.
+inline bool splits_ok(int splits, const void* ws, int K, int bk, int tk) {
+  return splits >= 1 && splits <= 65535 && splits <= k_steps(K, bk, tk) &&
+         (splits == 1 || ws != nullptr);
+}
+
+namespace {  // one copy per translation unit
+
+// C = ws[0] + ws[1] + ... + ws[splits-1], added in that order.
+__global__ void __launch_bounds__(256)
+splitk_reduce(const float* __restrict__ ws, float* __restrict__ C,
+              long long mn, int splits) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = ws[i];
+    for (int p = 1; p < splits; ++p) s = __fadd_rn(s, ws[p * mn + i]);
+    C[i] = s;
+  }
+}
+
+// After the body's launch: its launch error, or the reduction's when the
+// body wrote `splits` > 1 partial tiles to ws.  Same stream, no sync.
+inline int finish_splits(float* C, const float* ws, int M, int N, int splits,
+                         cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long mn = (long long)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
+  splitk_reduce<<<blocks, 256, 0, stream>>>(ws, C, mn, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace rmpm

@@ -8,7 +8,10 @@
 // ti + tj < map[...].  The map lives in device memory and each thread block
 // loads its own entry, so changing a mode changes one int32 and builds
 // nothing; this is the run-time reconfiguration path of the serving engine.
-// Datapath, bound and design notes: rmpm_gemm.cuh (shared with limb_matmul).
+// The K walk is split S ways across thread blocks exactly as in the limb
+// kernel (each step reads the map entry of its own slab), so uniform maps
+// stay bit-identical to it at every S.  Datapath, split-K, bound and design
+// notes: rmpm_gemm.cuh (shared with limb_matmul).
 #include "rmpm_gemm.cuh"
 
 namespace {
@@ -22,35 +25,40 @@ tile_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 template <int KMAX>
-int launch(const float* a, const float* b, float* c, const int* map,
+int launch(const float* a, const float* b, float* c, float* ws, const int* map,
            int map_ndim, int m, int n, int k, int bm, int bn, int bk,
-           cudaStream_t stream) {
-  tile_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn), rmpm::THREADS, 0,
-                             stream>>>(a, b, c, map, map_ndim, m, n, k, bm, bn,
-                                       bk);
-  return (int)cudaGetLastError();
+           int splits, cudaStream_t stream) {
+  if (!rmpm::splits_ok(splits, ws, k, bk, rmpm::Tiling<KMAX>::TK))
+    return (int)cudaErrorInvalidValue;
+  tile_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
+                             rmpm::THREADS, 0, stream>>>(
+      a, b, splits > 1 ? ws : c, map, map_ndim, m, n, k, bm, bn, bk);
+  return rmpm::finish_splits(c, ws, m, n, splits, stream);
 }
 
 }  // namespace
 
-// kmax in [1, 3]; map_ndim in {2, 3}; map is int32 in device memory.
+// kmax in [1, 3]; map_ndim in {2, 3}; map is int32 in device memory;
+// splits >= 1, and ws a float32 workspace of splits * m * n when splits > 1
+// (unused, may be null, when splits == 1).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad argument.
 extern "C" int rmpm_tile_matmul(const void* a, const void* b, void* c,
-                                const void* map, int map_ndim, int m, int n,
-                                int k, int kmax, int bm, int bn, int bk,
-                                void* stream) {
+                                void* ws, const void* map, int map_ndim,
+                                int m, int n, int k, int kmax, int bm, int bn,
+                                int bk, int splits, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
       map == nullptr || (map_ndim != 2 && map_ndim != 3))
     return (int)cudaErrorInvalidValue;
   const float* A = (const float*)a;
   const float* B = (const float*)b;
   float* C = (float*)c;
+  float* W = (float*)ws;
   const int* mp = (const int*)map;
   cudaStream_t s = (cudaStream_t)stream;
   switch (kmax) {
-    case 1: return launch<1>(A, B, C, mp, map_ndim, m, n, k, bm, bn, bk, s);
-    case 2: return launch<2>(A, B, C, mp, map_ndim, m, n, k, bm, bn, bk, s);
-    case 3: return launch<3>(A, B, C, mp, map_ndim, m, n, k, bm, bn, bk, s);
+    case 1: return launch<1>(A, B, C, W, mp, map_ndim, m, n, k, bm, bn, bk, splits, s);
+    case 2: return launch<2>(A, B, C, W, mp, map_ndim, m, n, k, bm, bn, bk, splits, s);
+    case 3: return launch<3>(A, B, C, W, mp, map_ndim, m, n, k, bm, bn, bk, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -30,6 +30,9 @@ NVCC_FLAGS = (
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 
 BUILD_COUNT = 0
+#: the compilers' output of the last build (with ``verbose=True`` it holds
+#: ptxas's registers, shared memory and spills per kernel)
+BUILD_LOG = ""
 LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0,
             "limb_matmul_dd": 0}
 
@@ -71,7 +74,7 @@ def _find_nvcc() -> str:
 
 
 def _build(verbose: bool = False) -> Path:
-    global BUILD_COUNT
+    global BUILD_COUNT, BUILD_LOG
     nvcc = _find_nvcc()
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
@@ -93,8 +96,9 @@ def _build(verbose: bool = False) -> Path:
         objs.append(str(obj))
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    BUILD_LOG = "\n".join(logs)
     if verbose:
-        print("\n".join(logs), flush=True)
+        print(BUILD_LOG, flush=True)
     lib = out / "librepro_torch_kernels.so"
     link = subprocess.run(
         [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -110,9 +114,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rmpm_quantize_mantissa.argtypes = [p, p, ll, i, i, p]
     lib.rmpm_quantize_mantissa.restype = i
-    lib.rmpm_limb_matmul.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    # (a, b, c, workspace, m, n, k, limbs, bm, bn, bk, splits, stream)
+    lib.rmpm_limb_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rmpm_limb_matmul.restype = i
-    lib.rmpm_tile_matmul.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    # (a, b, c, workspace, map, map_ndim, m, n, k, kmax, bm, bn, bk, splits, stream)
+    lib.rmpm_tile_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.rmpm_tile_matmul.restype = i
     lib.rmpm_limb_matmul_dd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.rmpm_limb_matmul_dd.restype = i

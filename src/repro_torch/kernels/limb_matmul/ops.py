@@ -12,8 +12,17 @@ double-f32 pair, from the kernel for CUDA tensors and from
 ``kernels.blocking``); the limb kernel has no map but walks K in the same
 ``bk`` slabs as the mode-map kernel, which is what makes a uniform map
 bit-identical to this kernel.
+
+Split-K.  The two kernels cut one thread block's K walk (``k_walk``: the
+steps of ``k_step(k)`` inside each ``bk`` slab) into ``S`` contiguous
+ranges run by separate thread blocks, and add the partial results in the
+fixed order s = 0..S-1.  ``split_k`` picks S for the card; the wrappers take
+``splits=`` only as an override for timing, and the plain versions take it
+so they sum the same partials in the same order.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,6 +31,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.blocking import ceil_to, clamp_block
 
 DEFAULT_BLOCK = (128, 128, 512)
+#: thread-block tile of the CUDA kernels (``TM x TN`` in ``csrc/rmpm_gemm.cuh``)
+THREAD_TILE = (32, 32)
+#: resident thread blocks per SM that ``split_k`` fills: the body uses up to
+#: 255 registers x 128 threads, so two blocks fit an SM's 65,536 registers
+BLOCKS_PER_SM = 2
 
 
 def tile_grid(
@@ -33,6 +47,102 @@ def tile_grid(
     bm_, bn_, bk_ = clamp_block(bm, m), clamp_block(bn, n), clamp_block(bk, kdim)
     grid = (ceil_to(m, bm_) // bm_, ceil_to(n, bn_) // bn_, ceil_to(kdim, bk_) // bk_)
     return grid, (bm_, bn_, bk_)
+
+
+def k_step(k: int) -> int:
+    """The CUDA kernels' K step at ``k`` limbs: ``Tiling<KMAX>::TK`` of
+    ``csrc/rmpm_gemm.cuh`` (64 up to three limbs, 32 above)."""
+    return 64 if k <= 3 else 32
+
+
+def k_walk(kdim: int, bk: int, tk: int) -> list[tuple[int, int, int]]:
+    """One thread block's K walk in order: ``(slab, k0, k_end)`` for each
+    step of ``tk`` inside each ``bk`` slab (the last step of a slab, and the
+    last slab, may be short)."""
+    walk = []
+    for kk, s0 in enumerate(range(0, kdim, bk)):
+        s1 = min(s0 + bk, kdim)
+        walk += [(kk, k0, min(k0 + tk, s1)) for k0 in range(s0, s1, tk)]
+    return walk
+
+
+def k_steps(kdim: int, bk: int, tk: int) -> int:
+    """``len(k_walk(kdim, bk, tk))``, in closed form (``rmpm::k_steps``)."""
+    gk = -(-kdim // bk)
+    return (gk - 1) * -(-bk // tk) + -(-(kdim - (gk - 1) * bk) // tk)
+
+
+def split_ranges(steps: int, splits: int) -> list[tuple[int, int]]:
+    """Step range ``[t0, t1)`` of each split: ``[s*T//S, (s+1)*T//S)``."""
+    return [(s * steps // splits, (s + 1) * steps // splits) for s in range(splits)]
+
+
+def split_pieces(kdim: int, bk: int, tk: int, splits: int) -> list[list[tuple[int, int, int]]]:
+    """For each split, its K pieces ``(slab, k0, k_end)``: its range of the
+    walk with consecutive steps of one slab merged.  With one split the
+    pieces are the ``bk`` slabs."""
+    walk = k_walk(kdim, bk, tk)
+    if not 1 <= splits <= max(len(walk), 1):
+        raise ValueError(f"splits must lie in [1, {len(walk)}] (the K walk's steps), "
+                         f"got {splits}")
+    out = []
+    for t0, t1 in split_ranges(len(walk), splits):
+        pieces: list[tuple[int, int, int]] = []
+        for kk, k0, k1 in walk[t0:t1]:
+            if pieces and pieces[-1][0] == kk:
+                pieces[-1] = (kk, pieces[-1][1], k1)
+            else:
+                pieces.append((kk, k0, k1))
+        out.append(pieces)
+    return out
+
+
+def reduce_splits(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The partials added in the kernels' order: ((p0 + p1) + p2) + ..."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def gemm_blocks(m: int, n: int, bm: int, bn: int) -> int:
+    """Thread blocks of one split of the kernels' grid (``rmpm::gemm_grid``)
+    at the clamped blocks."""
+    tm, tn = THREAD_TILE
+    return (-(-m // bm) * -(-bm // tm)) * (-(-n // bn) * -(-bn // tn))
+
+
+def split_k(m: int, n: int, kdim: int, *, bm: int, bn: int, bk: int, tk: int,
+            sms: int) -> int:
+    """Number of K splits for the limb and mode-map kernels: enough to put
+    about ``BLOCKS_PER_SM`` thread blocks on each of ``sms`` SMs, never more
+    than the walk has steps, and 1 once the (M, N) grid alone has more
+    blocks than the card has SMs.  Depends on the problem, the clamped
+    blocks, the K step and the card only — never on the limb count, which
+    keeps uniform map == limb kernel and runtime == static bitwise."""
+    want = BLOCKS_PER_SM * sms // max(gemm_blocks(m, n, bm, bn), 1)
+    return max(1, min(want, k_steps(kdim, bk, tk)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def resolve_splits(splits: int | None, device: torch.device, m: int, n: int, kdim: int, *,
+                   bm: int, bn: int, bk: int, tk: int) -> int:
+    """The S a wrapper runs at: ``splits`` when given (checked against the
+    walk), else ``split_k`` for the card of a CUDA ``device`` and 1 (the
+    unsplit walk) for the CPU's plain versions."""
+    steps = k_steps(kdim, bk, tk)
+    if splits is None:
+        if device.type != "cuda":
+            return 1
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        return split_k(m, n, kdim, bm=bm, bn=bn, bk=bk, tk=tk, sms=_sm_count(index))
+    if not 1 <= splits <= steps:
+        raise ValueError(f"splits must lie in [1, {steps}] (the K walk's steps), got {splits}")
+    return int(splits)
 
 
 def extract_limbs(x: torch.Tensor, k: int) -> list[torch.Tensor]:
@@ -47,21 +157,26 @@ def extract_limbs(x: torch.Tensor, k: int) -> list[torch.Tensor]:
 
 
 def limb_matmul_plain(a: torch.Tensor, b: torch.Tensor, k: int = 3, *,
-                      bk: int = 512) -> torch.Tensor:
+                      bk: int = 512, splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the kernel: a (M, K) f32 @ b (K, N) f32 at
-    k-limb precision.  K is walked in ``bk`` slabs and, inside a slab, the
-    retained terms are added high order first into one f32 accumulator."""
+    k-limb precision.  Each of ``splits`` splits walks its pieces of K
+    (``split_pieces``; one split: the ``bk`` slabs) and adds the retained
+    terms, high order first, into its own f32 partial; the partials are
+    added in split order."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     m, kdim = a.shape
     n = b.shape[1]
     bk_ = clamp_block(bk, kdim)
     al, bl = extract_limbs(a, k), extract_limbs(b, k)
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    for k0 in range(0, kdim, bk_):
-        for i, j in limb_product_terms(k):
-            acc = acc + al[i][:, k0:k0 + bk_] @ bl[j][k0:k0 + bk_, :]
-    return acc
+    parts = []
+    for pieces in split_pieces(kdim, bk_, k_step(k), splits):
+        acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        for _, k0, k1 in pieces:
+            for i, j in limb_product_terms(k):
+                acc = acc + al[i][:, k0:k1] @ bl[j][k0:k1, :]
+        parts.append(acc)
+    return reduce_splits(parts)
 
 
 def check_gemm_operands(a2: torch.Tensor, b2: torch.Tensor, what: str) -> None:
@@ -77,18 +192,28 @@ def check_gemm_operands(a2: torch.Tensor, b2: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: contraction mismatch {tuple(a2.shape)} @ {tuple(b2.shape)}")
 
 
-def _launch(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int, bk: int) -> torch.Tensor:
+def split_workspace(splits: int, m: int, n: int, device: torch.device) -> torch.Tensor | None:
+    """The [S, M, N] f32 partial tiles of a split launch (None unsplit)."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, m, n), dtype=torch.float32, device=device)
+
+
+def _launch(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int, bk: int,
+            splits: int) -> torch.Tensor:
     check_gemm_operands(a2, b2, "limb_matmul")
     if not 1 <= k <= 6:
         raise ValueError(f"limb_matmul kernel supports 1..6 limbs, got {k}")
     m, kdim = a2.shape
     n = b2.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a2.device)
+    ws = split_workspace(splits, m, n, a2.device)
     lib = build.library()
     with torch.cuda.device(a2.device):
         code = lib.rmpm_limb_matmul(
-            a2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, n, kdim, k,
-            bm, bn, bk, build.current_stream_ptr())
+            a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, kdim, k,
+            bm, bn, bk, splits, build.current_stream_ptr())
     build.check_launch(lib, code, "limb_matmul")
     build.LAUNCHES["limb_matmul"] += 1
     return out
@@ -103,12 +228,15 @@ def limb_matmul(
     bm: int = 128,
     bn: int = 128,
     bk: int = 512,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Multi-precision matmul a (..., K) @ b (K, N) via the fused kernel.
 
     Only RNE limb extraction is fused; the paper's GRTE rounding runs
     through kernels/quantize_mantissa first.  Leading dims of ``a`` are
-    flattened; bf16 inputs are accepted."""
+    flattened; bf16 inputs are accepted.  ``splits`` overrides the K split
+    count (``None``: ``split_k`` on the card, 1 on the CPU); it exists for
+    timing the layouts side by side."""
     if rounding != "rne":
         from repro_torch.kernels.quantize_mantissa.ops import quantize_mantissa_op
 
@@ -121,25 +249,19 @@ def limb_matmul(
     b2 = b.to(torch.float32)
     m = a2.shape[0]
     _, (bm_, bn_, bk_) = tile_grid(m, n, kdim, bm=bm, bn=bn, bk=bk)
+    if (a2.is_cuda or b2.is_cuda) and m == 0:
+        return torch.zeros((*lead, n), dtype=torch.float32, device=a2.device)
+    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k))
     if a2.is_cuda or b2.is_cuda:
-        if m == 0:
-            return torch.zeros((*lead, n), dtype=torch.float32, device=a2.device)
-        out = _launch(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_)
+        out = _launch(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
     else:
-        out = limb_matmul_plain(a2, b2, k, bk=bk_)
+        out = limb_matmul_plain(a2, b2, k, bk=bk_, splits=s)
     return out.reshape(*lead, n)
 
 
 # ---------------------------------------------------------------------------
 # double-f32 variant: every partial product folded in with TwoSum
 # ---------------------------------------------------------------------------
-
-
-def dd_fold_step(k: int) -> int:
-    """The K step at which the CUDA kernel folds each term's partial product
-    into its (sum, compensation) pair: ``Tiling<KMAX>::TK`` of
-    ``csrc/rmpm_gemm.cuh`` (64 up to three limbs, 32 above)."""
-    return 64 if k <= 3 else 32
 
 
 def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -158,7 +280,7 @@ def limb_matmul_dd_plain(a: torch.Tensor, b: torch.Tensor, k: int = 4, *,
     one step (high order first) is folded into a (sum, compensation) pair
     with TwoSum, and the pair is renormalized at the end.  ``fold=None``
     folds once per slab, the TPU kernel's grain; the CUDA kernel's grain is
-    ``dd_fold_step(k)``."""
+    ``k_step(k)``, its K step."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     if a.dim() != 2 or b.dim() != 2:

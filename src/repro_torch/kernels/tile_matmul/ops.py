@@ -13,7 +13,9 @@ The CUDA kernel (``csrc/tile_matmul.cu``) replaces the TPU kernel
   ``tile_policy.magnitude_map``)
 
 For CUDA tensors the kernel is launched (or the call raises); CPU tensors
-run ``tile_matmul_plain``, the same function in plain PyTorch.
+run ``tile_matmul_plain``, the same function in plain PyTorch.  Every entry
+point takes ``splits=`` (the K split count; ``None``: ``split_k``, see
+``kernels.limb_matmul.ops``) as an override for timing.
 """
 from __future__ import annotations
 
@@ -26,6 +28,11 @@ from repro_torch.kernels.limb_matmul.ops import (
     DEFAULT_BLOCK,  # noqa: F401  (re-exported: the planner reads it here)
     check_gemm_operands,
     extract_limbs,
+    k_step,
+    reduce_splits,
+    resolve_splits,
+    split_pieces,
+    split_workspace,
     tile_grid,
 )
 
@@ -38,28 +45,33 @@ def _expand_map(mode_map2d: torch.Tensor, bm: int, bn: int, m: int, n: int) -> t
 
 
 def tile_matmul_plain(a: torch.Tensor, b: torch.Tensor, mode_map: torch.Tensor, *,
-                      kmax: int, bm: int, bn: int, bk: int) -> torch.Tensor:
+                      kmax: int, bm: int, bn: int, bk: int, splits: int = 1) -> torch.Tensor:
     """Plain PyTorch version of the kernel on (M, K) @ (K, N) f32 with the
-    CLAMPED blocks.  Same walk as ``limb_matmul_plain`` (K slabs, terms high
-    order first); a pass updates only the elements whose tile runs it, so a
-    uniform map reproduces ``limb_matmul_plain`` bit for bit."""
+    CLAMPED blocks.  Same walk as ``limb_matmul_plain`` (per split, its K
+    pieces with terms high order first; partials added in split order), each
+    piece under the map entry of its slab; a pass updates only the elements
+    whose tile runs it, so a uniform map reproduces ``limb_matmul_plain`` bit
+    for bit at every ``splits``."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
     m, kdim = a.shape
     n = b.shape[1]
     mode_map = mode_map.to(device=a.device, dtype=torch.int32)
     al, bl = extract_limbs(a, kmax), extract_limbs(b, kmax)
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    for kk, k0 in enumerate(range(0, kdim, bk)):
-        slab = mode_map[:, :, kk] if mode_map.dim() == 3 else mode_map
-        k_elem = _expand_map(slab, bm, bn, m, n)
-        for ti, tj in limb_product_terms(kmax):
-            p = al[ti][:, k0:k0 + bk] @ bl[tj][k0:k0 + bk, :]
-            acc = torch.where(ti + tj < k_elem, acc + p, acc)
-    return acc
+    parts = []
+    for pieces in split_pieces(kdim, bk, k_step(kmax), splits):
+        acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        for kk, k0, k1 in pieces:
+            slab = mode_map[:, :, kk] if mode_map.dim() == 3 else mode_map
+            k_elem = _expand_map(slab, bm, bn, m, n)
+            for ti, tj in limb_product_terms(kmax):
+                p = al[ti][:, k0:k1] @ bl[tj][k0:k1, :]
+                acc = torch.where(ti + tj < k_elem, acc + p, acc)
+        parts.append(acc)
+    return reduce_splits(parts)
 
 
-def _launch(a2, b2, mode_map, kmax, bm, bn, bk) -> torch.Tensor:
+def _launch(a2, b2, mode_map, kmax, bm, bn, bk, splits) -> torch.Tensor:
     check_gemm_operands(a2, b2, "tile_matmul")
     if not 1 <= kmax <= F32_KMAX:
         raise ValueError(f"tile_matmul kernel supports kmax 1..{F32_KMAX}, got {kmax}")
@@ -71,11 +83,13 @@ def _launch(a2, b2, mode_map, kmax, bm, bn, bk) -> torch.Tensor:
     m, kdim = a2.shape
     n = b2.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a2.device)
+    ws = split_workspace(splits, m, n, a2.device)
     lib = build.library()
     with torch.cuda.device(a2.device):
         code = lib.rmpm_tile_matmul(
-            a2.data_ptr(), b2.data_ptr(), out.data_ptr(), mode_map.data_ptr(),
-            mode_map.dim(), m, n, kdim, kmax, bm, bn, bk,
+            a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), mode_map.data_ptr(),
+            mode_map.dim(), m, n, kdim, kmax, bm, bn, bk, splits,
             build.current_stream_ptr())
     build.check_launch(lib, code, "tile_matmul")
     build.LAUNCHES["tile_matmul"] += 1
@@ -92,6 +106,7 @@ def tile_matmul(
     bm: int = 128,
     bn: int = 128,
     bk: int = 512,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Multi-precision matmul a (..., K) @ b (K, N) with a per-tile mode map.
 
@@ -122,11 +137,12 @@ def tile_matmul(
             f"flattened matmul ({m}, {kdim}) @ ({kdim}, {n}) at blocks "
             f"({bm_}, {bn_}, {bk_})"
         )
+    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(kmax))
     if a2.is_cuda or b2.is_cuda:
         mode_map = mode_map.to(device=a2.device, dtype=torch.int32).contiguous()
-        out = _launch(a2.contiguous(), b2.contiguous(), mode_map, kmax, bm_, bn_, bk_)
+        out = _launch(a2.contiguous(), b2.contiguous(), mode_map, kmax, bm_, bn_, bk_, s)
     else:
-        out = tile_matmul_plain(a2, b2, mode_map, kmax=kmax, bm=bm_, bn=bn_, bk=bk_)
+        out = tile_matmul_plain(a2, b2, mode_map, kmax=kmax, bm=bm_, bn=bn_, bk=bk_, splits=s)
     return out.reshape(*lead, n)
 
 
@@ -147,6 +163,7 @@ def tile_matmul_mode(
     bm: int = 128,
     bn: int = 128,
     bk: int = 512,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Uniform static-mode tile matmul — bit-identical to
     ``limb_matmul(k=MODE_LIMBS[mode])`` at the same blocks (kmax is set to
@@ -158,7 +175,8 @@ def tile_matmul_mode(
     k = MODE_LIMBS[mode]
     mode_map = torch.full(_uniform_grid(a, b, bm, bn, bk), k, dtype=torch.int32,
                           device=a.device)
-    return tile_matmul(a, b, mode_map, kmax=k, rounding=rounding, bm=bm, bn=bn, bk=bk)
+    return tile_matmul(a, b, mode_map, kmax=k, rounding=rounding, bm=bm, bn=bn, bk=bk,
+                       splits=splits)
 
 
 def tile_matmul_runtime(
@@ -170,6 +188,7 @@ def tile_matmul_runtime(
     bm: int = 128,
     bn: int = 128,
     bk: int = 512,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Run-time reconfigurable tile matmul: an f32-ladder mode — a host int
     (e.g. one entry of ``repro_torch.adapt``'s ModeTable) or a device int32
@@ -186,7 +205,7 @@ def tile_matmul_runtime(
         k = min(max(int(mode_scalar), 1), F32_KMAX)
         mode_map = torch.full(shape, k, dtype=torch.int32, device=a.device)
     return tile_matmul(a, b, mode_map, kmax=F32_KMAX, rounding=rounding,
-                       bm=bm, bn=bn, bk=bk)
+                       bm=bm, bn=bn, bk=bk, splits=splits)
 
 
 def tile_matmul_auto(

@@ -25,9 +25,9 @@ from repro_torch.core.precision import F32_MODES, MODE_LIMBS, Mode
 from repro_torch.kernels import build
 from repro_torch.kernels.limb_matmul import ops as limb_ops
 from repro_torch.kernels.limb_matmul.ops import (
-    dd_fold_step,
     limb_matmul,
     limb_matmul_dd,
+    k_step,
     limb_matmul_dd_plain,
     limb_matmul_plain,
 )
@@ -184,8 +184,8 @@ class TestLimbMatmulDD:
     def test_fold_step_is_the_kernel_grain_and_both_grains_agree(self, rng):
         a, b = _ab(rng, 16, 256, 24)
         slab = limb_matmul_dd_plain(_t(a), _t(b), 4, bk=128)
-        fine = limb_matmul_dd_plain(_t(a), _t(b), 4, bk=128, fold=dd_fold_step(4))
-        assert (dd_fold_step(3), dd_fold_step(4), dd_fold_step(6)) == (64, 32, 32)
+        fine = limb_matmul_dd_plain(_t(a), _t(b), 4, bk=128, fold=k_step(4))
+        assert (k_step(3), k_step(4), k_step(6)) == (64, 32, 32)
         assert torch.equal(limb_matmul_dd(_t(a), _t(b), 4, bk=128)[0], slab[0])
         got = _dd_checks(fine[0].numpy(), fine[1].numpy(), a, b)
         want = _dd_checks(slab[0].numpy(), slab[1].numpy(), a, b)
