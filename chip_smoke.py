@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 It builds the four CUDA kernels from ``src/repro_torch/csrc`` (once), holds
 each against its plain PyTorch version on the card at the shapes its path
-gives it (the limb and mode-map kernels at the K split ``split_k`` plans,
-which it prints per shape, and unsplit), times them beside their bound, then
+gives it (the limb, mode-map and double-f32 kernels at the K split
+``split_k`` plans, which it prints per shape, and unsplit), times them
+beside their bound, then
 serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
@@ -51,7 +52,9 @@ from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
     limb_matmul_dd,
     limb_matmul_dd_plain,
     limb_matmul_plain,
+    reduce_splits_dd,
     resolve_splits,
+    split_pieces,
     split_ranges,
     tile_grid,
 )
@@ -88,12 +91,19 @@ MAIN_M = (4, 48)
 MATMUL_TOL = 2e-6
 #: double-f32 kernel, over the result's scale: (hi + lo) against an f64
 #: product (the reference's bound for its own kernel), |lo| against max|hi|,
-#: and (hi + lo) against the plain version folding at the kernel's K step —
-#: each of the two is held within 2^-22 of f64, so they may differ by twice
-#: that (their products are summed in different orders inside a K step)
+#: and (hi + lo) against the plain version at the same K split folding at the
+#: kernel's K step — each of the two is held within 2^-22 of f64, so they may
+#: differ by twice that (their products are summed in other orders inside a
+#: K step)
 DD_F64_TOL = 2.0**-22
 DD_LO_RATIO = 2.0**-20
 DD_TOL = 2.0**-21
+#: split against unsplit, over the result's scale: both fold the same K
+#: steps' partials, so they differ only by the pair's own rounding — at most
+#: about T * terms * 2^-48 of a running sum (6.6e-12 at 48x2816x1024, k = 6);
+#: a reduction that loses lo_s or TwoSum's error moves the result by about
+#: 2^-24 of a partial, far above this limit
+DD_SPLIT_TOL = 2.0**-32
 #: (M, K, N, limbs) checked and timed: the reference's test shape, a ragged
 #: shape, and the serving shapes at M32 (4 limbs) and M48 (6 limbs)
 DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + tuple(
@@ -378,31 +388,110 @@ def check_kernels(gen) -> dict:
             "unsplit_vs_split_rel_err": unsplit_vs_split}
 
 
+def _rand_misaligned(gen, *shape):
+    """A contiguous operand whose storage starts 4 bytes past a 16-byte
+    boundary: the double-f32 kernel must take its 4-byte load path."""
+    n = math.prod(shape)
+    x = torch.empty(n + 1, device="cuda", dtype=torch.float32)[1:].view(*shape)
+    x.copy_(_rand(gen, *shape))
+    check(x.data_ptr() % 16 != 0, "the misaligned operand is 16-byte aligned")
+    return x
+
+
+def hold_dd(a, b, limbs: int, splits: int, blk: dict) -> tuple[dict, torch.Tensor, float]:
+    """One double-f32 launch at ``splits`` held against an f64 product, |lo|
+    against max|hi|, the plain version at the same split folding at the
+    kernel's K step, and a second call bitwise.  Returns the case's numbers,
+    (hi + lo) in f64 and the result's scale."""
+    m, k = a.shape
+    n = b.shape[1]
+    hi, lo = limb_matmul_dd(a, b, limbs, splits=splits, **blk)
+    hi2, lo2 = limb_matmul_dd(a, b, limbs, splits=splits, **blk)
+    torch.cuda.synchronize()
+    what = f"limb_matmul_dd {(m, k, n)} {blk} k={limbs} S={splits}"
+    check(torch.equal(hi, hi2) and torch.equal(lo, lo2), f"{what}: two calls differ")
+    _, (_, _, bk) = tile_grid(m, n, k, **blk)
+    p_hi, p_lo = limb_matmul_dd_plain(a, b, limbs, bk=bk, fold=k_step(limbs), splits=splits)
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    got = hi.double() + lo.double()
+    f64_err = float((got - exact).abs().max()) / scale
+    plain_abs = float((got - (p_hi.double() + p_lo.double())).abs().max())
+    lo_ratio = float(lo.abs().max() / hi.abs().max())
+    check(f64_err <= DD_F64_TOL, f"{what}: {f64_err:.3e} of scale from f64 > {DD_F64_TOL:.3e}")
+    check(lo_ratio < DD_LO_RATIO, f"{what}: |lo|/max|hi| = {lo_ratio:.3e}")
+    check(plain_abs / scale <= DD_TOL,
+          f"{what}: {plain_abs / scale:.3e} of scale from the plain version > {DD_TOL:.3e}")
+    return (dict(m=m, k=k, n=n, limbs=limbs, splits=splits, blk=blk, f64_rel_err=f64_err,
+                 vs_plain_abs_err=plain_abs, vs_plain_rel_err=plain_abs / scale,
+                 lo_over_hi=lo_ratio), got, scale)
+
+
+def split_composition_mismatches(a, b, limbs: int, splits: int, blk: dict, hi, lo) -> int:
+    """Elements where the kernel's result at ``splits`` (``hi``, ``lo``) is not
+    exactly its own per-split pairs folded by ``reduce_splits_dd``.  Split s's
+    pair is the unsplit kernel on ``a`` with every K column outside the
+    split's range zeroed: the same walk, the same partials in its steps and
+    exact zeros elsewhere, which leave a (sum, compensation) pair as it is.
+    So any change to the reduction's rule or order, or to the split ranges,
+    shows as a mismatch, however small."""
+    m, k = a.shape
+    _, (_, _, bk) = tile_grid(m, b.shape[1], k, **blk)
+    pairs = []
+    for pieces in split_pieces(k, bk, k_step(limbs), splits):
+        masked = torch.zeros_like(a)
+        k0, k1 = pieces[0][1], pieces[-1][2]
+        masked[:, k0:k1] = a[:, k0:k1]
+        pairs.append(limb_matmul_dd(masked, b, limbs, splits=1, **blk))
+    want_hi, want_lo = reduce_splits_dd(pairs)
+    return int(((hi != want_hi) | (lo != want_lo)).sum())
+
+
+def split_vs_unsplit(got, unsplit, scale: float) -> float:
+    """max |(hi + lo) at S - (hi + lo) at S = 1| over the result's scale."""
+    return float((got - unsplit).abs().max()) / scale
+
+
 def check_dd(gen) -> dict:
-    """Hold the double-f32 kernel against an f64 product and against its
-    plain version folding at the kernel's K step, at every DD case; then
-    print its error beside the f32 limb kernel's at k = 3, K = 2816."""
-    cases = []
-    for m, k, n, limbs in DD_CASES:
-        a, b = _rand(gen, m, k), _rand(gen, k, n)
-        hi, lo = limb_matmul_dd(a, b, limbs)
-        torch.cuda.synchronize()
-        _, (_, _, bk) = tile_grid(m, n, k)
-        p_hi, p_lo = limb_matmul_dd_plain(a, b, limbs, bk=bk, fold=k_step(limbs))
-        exact = a.double() @ b.double()
-        scale = float(exact.abs().max())
-        got = hi.double() + lo.double()
-        f64_err = float((got - exact).abs().max()) / scale
-        plain_abs = float((got - (p_hi.double() + p_lo.double())).abs().max())
-        lo_ratio = float(lo.abs().max() / hi.abs().max())
-        what = f"limb_matmul_dd {(m, k, n)} k={limbs}"
-        check(f64_err <= DD_F64_TOL, f"{what}: {f64_err:.3e} of scale from f64 > {DD_F64_TOL:.3e}")
-        check(lo_ratio < DD_LO_RATIO, f"{what}: |lo|/max|hi| = {lo_ratio:.3e}")
-        check(plain_abs / scale <= DD_TOL,
-              f"{what}: {plain_abs / scale:.3e} of scale from the plain version > {DD_TOL:.3e}")
-        cases.append(dict(m=m, k=k, n=n, limbs=limbs, f64_rel_err=f64_err,
-                          vs_plain_abs_err=plain_abs, vs_plain_rel_err=plain_abs / scale,
-                          lo_over_hi=lo_ratio))
+    """Hold the double-f32 kernel, at the K split it plans (``split_k``) and
+    unsplit, at every DD case (``hold_dd``); split against unsplit within
+    ``DD_SPLIT_TOL``, and every split result exactly equal to its own
+    per-split pairs folded in order (``split_composition_mismatches``); then
+    at forced splits (2 and the walk's length) at a ragged shape and at
+    bk = 16 and 720, and on operands not 16-byte aligned (its 4-byte
+    loads).  Then print its error beside the f32 limb kernel's at k = 3,
+    K = 2816."""
+    cases, vs_unsplit, compositions = [], [], 0
+    forced = [((17, 33, 9, 4), dict(bm=16, bn=16, bk=16)),
+              ((17, 33, 9, 3), dict(bm=16, bn=16, bk=16)), ((4, 2816, 1024, 4), dict(bk=720))]
+    for (m, k, n, limbs), blk, misaligned in (
+            [(c, {}, False) for c in DD_CASES] + [(c, blk, False) for c, blk in forced]
+            + [((4, 1024, 1024, 4), {}, True), ((48, 2816, 1024, 6), {}, True)]):
+        rand = _rand_misaligned if misaligned else _rand
+        a, b = rand(gen, m, k), rand(gen, k, n)
+        _, (_, _, bk) = tile_grid(m, n, k, **blk)
+        planned = planned_splits(m, k, n, limbs, **blk)
+        walk = len(k_walk(k, bk, k_step(limbs)))
+        if (m, k, n, limbs) == (4, 2816, 1024, 4) and not blk:
+            check(planned > 1, f"no K split for the double-f32 kernel at {(m, k, n)}")
+        extra = {2, walk} if blk or (m, k, n) == (17, 33, 9) else set()
+        held = {s: hold_dd(a, b, limbs, s, blk)
+                for s in sorted({1, planned} | {s for s in extra if s <= walk})}
+        _, unsplit, scale = held[1]
+        for s, (row, got, _) in held.items():
+            row.update(planned=planned, misaligned=misaligned)
+            if s > 1:
+                what = f"limb_matmul_dd {(m, k, n)} {blk} k={limbs} S={s}"
+                err = split_vs_unsplit(got, unsplit, scale)
+                check(err <= DD_SPLIT_TOL, f"{what}: vs S=1 {err:.3e} > {DD_SPLIT_TOL:.3e}")
+                hi, lo = limb_matmul_dd(a, b, limbs, splits=s, **blk)
+                bad = split_composition_mismatches(a, b, limbs, s, blk, hi, lo)
+                check(bad == 0, f"{what}: {bad} elements differ from its per-split pairs "
+                                "folded in order")
+                vs_unsplit.append(err)
+                compositions += 1
+                row["vs_unsplit_rel_err"] = err
+            cases.append(row)
     side_by_side = []
     for m in MAIN_M:
         a, b = _rand(gen, m, 2816), _rand(gen, 2816, 1024)
@@ -414,9 +503,13 @@ def check_dd(gen) -> dict:
             dd_f64_rel_err=float((hi.double() + lo.double() - exact).abs().max()) / scale,
             limb_f64_rel_err=float((limb_matmul(a, b, 3).double() - exact).abs().max()) / scale))
     return {"cases": cases, "tolerance_vs_f64": DD_F64_TOL, "lo_ratio": DD_LO_RATIO,
-            "tolerance_vs_plain": DD_TOL,
+            "tolerance_vs_plain": DD_TOL, "tolerance_split_vs_unsplit": DD_SPLIT_TOL,
+            "split_compositions_exact": compositions,
             "max_abs_err": max(c["vs_plain_abs_err"] for c in cases),
             "max_rel_err": max(c["vs_plain_rel_err"] for c in cases),
+            "max_f64_rel_err": max(c["f64_rel_err"] for c in cases),
+            "max_lo_over_hi": max(c["lo_over_hi"] for c in cases),
+            "max_split_vs_unsplit_rel_err": max(vs_unsplit),
             "dd_vs_limb_k3": side_by_side}
 
 
@@ -436,10 +529,12 @@ def drive_dd_entry_point(gen) -> int:
 
 
 def time_dd(gen) -> list[dict]:
-    """Time the double-f32 kernel at every DD case beside its bound, its
-    plain version at the kernel's fold step and one torch.matmul in f32 and
-    in f64 (what an M32/M48 user would otherwise call).  Operands smaller
-    than the L2 cache rotate through at most 64 copies and are read warm."""
+    """Time the double-f32 kernel at every DD case, at its planned K split
+    and unsplit (``splits=1``) in the same run, beside its bound, its plain
+    version at the planned split folding at the kernel's K step, and one
+    torch.matmul in f32 and in f64 (what an M32/M48 user would otherwise
+    call).  Operands smaller than the L2 cache rotate through at most 64
+    copies and are read warm."""
     rows = []
     for m, k, n, limbs in DD_CASES:
         a = _rand(gen, m, k)
@@ -448,15 +543,19 @@ def time_dd(gen) -> list[dict]:
         a64, bs64 = a.double(), [x.double() for x in bs]
         _, (_, _, bk) = tile_grid(m, n, k)
         step = k_step(limbs)
+        s = planned_splits(m, k, n, limbs)
         bound, by = gemm_bound_ms(m, k, n, len(limb_product_terms(limbs)), outputs=2)
+        ms1, enqueue1 = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs, splits=1), n_rot)
         ms, enqueue = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs), n_rot)
-        plain, _ = time_ms(lambda i: limb_matmul_dd_plain(a, bs[i], limbs, bk=bk, fold=step),
-                           n_rot, warmup=1, reps=2, samples=3)
+        plain, _ = time_ms(
+            lambda i: limb_matmul_dd_plain(a, bs[i], limbs, bk=bk, fold=step, splits=s),
+            n_rot, warmup=1, reps=2, samples=3)
         lib32, _ = time_ms(lambda i: torch.matmul(a, bs[i]), n_rot)
         lib64, _ = time_ms(lambda i: torch.matmul(a64, bs64[i]), n_rot)
-        rows.append(dict(kernel="limb_matmul_dd", m=m, k=k, n=n, limbs=limbs, splits=1, ms=ms,
-                         enqueue_ms=enqueue, plain_ms=plain, bound_ms=bound, bound_by=by,
-                         library_ms=lib64, library_f32_ms=lib32, library_bf16_ms=None))
+        rows.append(dict(kernel="limb_matmul_dd", m=m, k=k, n=n, limbs=limbs, splits=s, ms=ms,
+                         enqueue_ms=enqueue, ms_splits1=ms1, enqueue_ms_splits1=enqueue1,
+                         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib64,
+                         library_f32_ms=lib32, library_bf16_ms=None))
         del bs, bs64
     return rows
 
@@ -899,7 +998,8 @@ def kernels_line(checks, timing, main_counts) -> dict:
     err_is = {
         "quantize_mantissa": "bit-exact (0 differing words)",
         "limb_matmul_dd": "largest |(hi + lo) - plain(hi + lo)| over all checked cases, the "
-                          "plain version folding at the kernel's K step (N(0,1) operands); "
+                          "plain version at the same K split folding at the kernel's K step "
+                          "(N(0,1) operands); "
                           f"max_rel_err is that over the result's scale, held to {DD_TOL:.3e}",
     }
     out = []

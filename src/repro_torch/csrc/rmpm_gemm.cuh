@@ -40,7 +40,9 @@
 // keeps its slab, so the map entry of slab kk governs exactly its own steps,
 // for a ragged last slab and for bk < TK alike.  Split s writes its f32
 // partial tile to a workspace [S, M, N]; `splitk_reduce` then adds the
-// partials in the fixed order s = 0, 1, ..., S-1 with __fadd_rn and writes C.
+// partials in the fixed order s = 0, 1, ..., S-1 with __fadd_rn and writes C
+// (the DD kernel writes (hi, lo) pairs and `splitk_reduce_dd` folds them in
+// the same order with TwoSum).
 // No float atomics and no last-block fixup: the order of every sum is fixed
 // by the layout, never by timing, so run-to-run bits, uniform map == limb
 // kernel and runtime == static hold at every S.  With S == 1 the body writes
@@ -63,16 +65,32 @@
 // Bound on this card: for decode shapes (M = a few rows) the weight B is
 // read once and dominates — the bound is bytes / memory rate; for large M
 // it is passes * 2MKN / bf16 tensor-core rate.  Split-K fills the card with
-// blocks (about two resident per SM); each block still keeps one TK-deep
-// register prefetch in flight and nothing more (no TMA, no wgmma), and at
-// M < 32 a warp whose 16 fragment rows lie wholly below the output skips
-// its MMAs.  Measured times stand beside the bound in PERF.md.
+// blocks (about two resident per SM), and at M < 32 a warp whose 16 fragment
+// rows lie wholly below the output skips its MMAs.  What bounds a split block
+// then is a fixed cost per K step (two barriers, the peel into limb planes)
+// and, for the double-f32 variant, the issue of its TwoSum folds (56 f32
+// adds a term and a step in each thread, in the two warps that are not idle
+// at M = 4).  Every instantiation keeps one TK-deep register prefetch in
+// flight during the MMAs.  No cp.async, TMA or wgmma: a cp.async ring of
+// three or four operand stages in place of the prefetch timed no faster for
+// the DD kernel (PERF.md; `tools/dd_variants.py` rebuilds it as a variant).
+// Measured times stand beside the bound in PERF.md.
+//
+// The DD load path.  A thread loads and peels chunks of four consecutive
+// elements: one 16-byte load when the operand allows it (16-byte aligned
+// base, row length and bk or bn multiples of four: `vec_a` / `vec_b`), else
+// up to four 4-byte loads, with elements out of range zero; `peel4` turns a
+// chunk into its limbs with two bf16x2 conversions and one 8-byte store a
+// limb.  The limb and mode-map instantiations keep one element a thread, so
+// their code and registers are unchanged.  Same limbs, same terms folded in
+// the same order, so the load path changes no bit.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace rmpm {
@@ -105,6 +123,27 @@ __device__ __forceinline__ void two_sum_fold(float& s, float& c, float p) {
   s = t;
 }
 
+// Peel four consecutive f32 values into KMAX bf16 limbs: limb l of the four
+// goes to dst + l * PLANE as one 8-byte store.  The same round-to-nearest
+// conversion and exact subtraction as one value at a time (two values per
+// cvt.rn.bf16x2), so the same limbs.
+template <int KMAX, int PLANE>
+__device__ __forceinline__ void peel4(float4 v, __nv_bfloat16* dst) {
+#pragma unroll
+  for (int l = 0; l < KMAX; ++l) {
+    const __nv_bfloat162 p0 = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 p1 = __floats2bfloat162_rn(v.z, v.w);
+    uint2 w;
+    w.x = *reinterpret_cast<const unsigned*>(&p0);
+    w.y = *reinterpret_cast<const unsigned*>(&p1);
+    *reinterpret_cast<uint2*>(dst + l * PLANE) = w;
+    v.x = __fsub_rn(v.x, __low2float(p0));
+    v.y = __fsub_rn(v.y, __high2float(p0));
+    v.z = __fsub_rn(v.z, __low2float(p1));
+    v.w = __fsub_rn(v.w, __high2float(p1));
+  }
+}
+
 struct NoCompensation {};
 
 // Steps of TK in the K walk of one thread block: bk slabs, TK steps in each.
@@ -123,10 +162,13 @@ __host__ __device__ inline int k_steps(int K, int bk, int tk) {
 // DD (compile-time): the double-f32 variant of the limb kernel.  Each
 // fragment element carries a second f32 register, the compensation, and
 // every term's partial sum over one K step is folded in with TwoSum instead
-// of a plain add; at the end C receives hi = s + c and C_lo the rounding
-// error of that sum.  With DD == false no compensation exists and the code
-// is the plain limb datapath, so the limb and mode-map kernels are unchanged.
-// The DD variant runs with gridDim.z == 1 only: C_lo is not split.
+// of a plain add; at the end the split renormalizes its pair to hi = s + c
+// and lo = the rounding error of that sum, and writes hi to C + s * M * N
+// and lo to C_lo + s * M * N (C and C_lo are the two halves of the workspace
+// when gridDim.z > 1; `splitk_reduce_dd` combines them).  Its operands come
+// through the four-wide load path described at the top.  With DD == false
+// no compensation exists and the load path is one element a thread, so the
+// limb and mode-map kernels are unchanged.
 template <int KMAX, bool DD = false>
 __device__ __forceinline__ void rmpm_gemm_body(
     const float* __restrict__ A, const float* __restrict__ B,
@@ -175,66 +217,9 @@ __device__ __forceinline__ void rmpm_gemm_body(
   std::conditional_t<DD, Acc, NoCompensation> comp;
   if constexpr (DD) wmma::fill_fragment(comp, 0.0f);
 
-  float ra[T::A_PER_THREAD];
-  float rb[T::B_PER_THREAD];
-
-  // Load one K step (k0 .. k0+TK, valid below k_end) into registers; out of
-  // range elements are zero, which adds exact zeros to the products.
-  auto load_step = [&](int k0, int k_end) {
-#pragma unroll
-    for (int i = 0; i < T::A_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = row0 + idx / TK;
-      const int k = k0 + idx % TK;
-      ra[i] = (r < row_end && k < k_end) ? A[(long long)r * K + k] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      const int k = k0 + idx / TN;
-      const int c = col0 + idx % TN;
-      rb[i] = (k < k_end && c < col_end) ? B[(long long)k * N + c] : 0.0f;
-    }
-  };
-
-  // Peel the registers into KMAX bf16 limb planes in shared memory.
-  auto split_step = [&]() {
-#pragma unroll
-    for (int i = 0; i < T::A_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      float r = ra[i];
-#pragma unroll
-      for (int l = 0; l < KMAX; ++l) {
-        const __nv_bfloat16 limb = __float2bfloat16_rn(r);
-        As[l][idx / TK][idx % TK] = limb;
-        r = __fsub_rn(r, __bfloat162float(limb));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < T::B_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      float r = rb[i];
-#pragma unroll
-      for (int l = 0; l < KMAX; ++l) {
-        const __nv_bfloat16 limb = __float2bfloat16_rn(r);
-        Bs[l][idx / TN][idx % TN] = limb;
-        r = __fsub_rn(r, __bfloat162float(limb));
-      }
-    }
-  };
-
-  auto step_k0 = [&](int t) { return (t / per_slab) * bk + (t % per_slab) * TK; };
-  auto step_end = [&](int t) { return min((t / per_slab + 1) * bk, K); };
-  const long long e_map = (long long)ti_map * gn + tj_map;
-
-  if (t_begin < t_end) load_step(step_k0(t_begin), step_end(t_begin));
-  for (int t = t_begin; t < t_end; ++t) {
-    const int kk = t / per_slab;  // the step's slab: the map's third axis
-    int k_tile = KMAX;
-    if (map != nullptr) k_tile = (map_ndim == 3) ? map[e_map * gk + kk] : map[e_map];
-    split_step();
-    __syncthreads();
-    if (t + 1 < t_end) load_step(step_k0(t + 1), step_end(t + 1));  // in flight during the MMAs
+  // The retained terms of one K step (those with ti + tj < k_tile), high
+  // order first, each folded into the accumulator.
+  auto mma_terms = [&](int k_tile) {
     if (!idle) {
       // retained terms, high order first: s = ti + tj from KMAX-1 down to 0
 #pragma unroll
@@ -268,7 +253,134 @@ __device__ __forceinline__ void rmpm_gemm_body(
         }
       }
     }
-    __syncthreads();
+  };
+
+  auto step_k0 = [&](int t) { return (t / per_slab) * bk + (t % per_slab) * TK; };
+  auto step_end = [&](int t) { return min((t / per_slab + 1) * bk, K); };
+
+  if constexpr (DD) {
+    // One K step in registers, in chunks of four (the DD load path at the
+    // top); 16-byte loads need an aligned base and rows and chunk starts
+    // (k0 a multiple of bk, col0 of bn) at multiples of four.
+    constexpr int A4 = T::A_PER_THREAD / 4;
+    constexpr int B4 = T::B_PER_THREAD / 4;
+    float4 ra4[A4];
+    float4 rb4[B4];
+    const bool vec_a = ((reinterpret_cast<uintptr_t>(A) & 15) | (K & 3) | (bk & 3)) == 0;
+    const bool vec_b = ((reinterpret_cast<uintptr_t>(B) & 15) | (N & 3) | (bn & 3)) == 0;
+    auto ld4 = [&](const float* src, int valid, bool vec) {
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (vec && valid == 4) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        if (valid > 0) v.x = src[0];
+        if (valid > 1) v.y = src[1];
+        if (valid > 2) v.z = src[2];
+        if (valid > 3) v.w = src[3];
+      }
+      return v;
+    };
+    auto load_step4 = [&](int t) {
+      const int k0 = step_k0(t), k_end = step_end(t);
+#pragma unroll
+      for (int i = 0; i < A4; ++i) {
+        const int q = (tid + i * THREADS) * 4;  // first element of the chunk
+        const int r = row0 + q / TK;
+        const int k = k0 + q % TK;
+        const int valid = r < row_end ? max(0, min(4, k_end - k)) : 0;
+        ra4[i] = ld4(A + (long long)r * K + k, valid, vec_a);
+      }
+#pragma unroll
+      for (int i = 0; i < B4; ++i) {
+        const int q = (tid + i * THREADS) * 4;
+        const int k = k0 + q / TN;
+        const int c = col0 + q % TN;
+        const int valid = k < k_end ? max(0, min(4, col_end - c)) : 0;
+        rb4[i] = ld4(B + (long long)k * N + c, valid, vec_b);
+      }
+    };
+    // Peel the registers into the limb planes, four elements at a time.
+    auto peel_regs = [&]() {
+#pragma unroll
+      for (int i = 0; i < A4; ++i) {
+        const int q = (tid + i * THREADS) * 4;
+        peel4<KMAX, TM * T::A_LD>(ra4[i], &As[0][q / TK][q % TK]);
+      }
+#pragma unroll
+      for (int i = 0; i < B4; ++i) {
+        const int q = (tid + i * THREADS) * 4;
+        peel4<KMAX, TK * T::B_LD>(rb4[i], &Bs[0][q / TN][q % TN]);
+      }
+    };
+    if (t_begin < t_end) load_step4(t_begin);
+    for (int t = t_begin; t < t_end; ++t) {
+      peel_regs();
+      __syncthreads();
+      if (t + 1 < t_end) load_step4(t + 1);  // in flight during the MMAs
+      mma_terms(KMAX);
+      __syncthreads();
+    }
+  } else {
+    float ra[T::A_PER_THREAD];
+    float rb[T::B_PER_THREAD];
+
+    // Load one K step (k0 .. k0+TK, valid below k_end) into registers; out of
+    // range elements are zero, which adds exact zeros to the products.
+    auto load_step = [&](int k0, int k_end) {
+#pragma unroll
+      for (int i = 0; i < T::A_PER_THREAD; ++i) {
+        const int idx = tid + i * THREADS;
+        const int r = row0 + idx / TK;
+        const int k = k0 + idx % TK;
+        ra[i] = (r < row_end && k < k_end) ? A[(long long)r * K + k] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < T::B_PER_THREAD; ++i) {
+        const int idx = tid + i * THREADS;
+        const int k = k0 + idx / TN;
+        const int c = col0 + idx % TN;
+        rb[i] = (k < k_end && c < col_end) ? B[(long long)k * N + c] : 0.0f;
+      }
+    };
+
+    // Peel the registers into KMAX bf16 limb planes in shared memory.
+    auto split_step = [&]() {
+#pragma unroll
+      for (int i = 0; i < T::A_PER_THREAD; ++i) {
+        const int idx = tid + i * THREADS;
+        float r = ra[i];
+#pragma unroll
+        for (int l = 0; l < KMAX; ++l) {
+          const __nv_bfloat16 limb = __float2bfloat16_rn(r);
+          As[l][idx / TK][idx % TK] = limb;
+          r = __fsub_rn(r, __bfloat162float(limb));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < T::B_PER_THREAD; ++i) {
+        const int idx = tid + i * THREADS;
+        float r = rb[i];
+#pragma unroll
+        for (int l = 0; l < KMAX; ++l) {
+          const __nv_bfloat16 limb = __float2bfloat16_rn(r);
+          Bs[l][idx / TN][idx % TN] = limb;
+          r = __fsub_rn(r, __bfloat162float(limb));
+        }
+      }
+    };
+
+    const long long e_map = (long long)ti_map * gn + tj_map;
+    if (t_begin < t_end) load_step(step_k0(t_begin), step_end(t_begin));
+    for (int t = t_begin; t < t_end; ++t) {
+      const int kk = t / per_slab;  // the step's slab: the map's third axis
+      int k_tile = KMAX;
+      if (map != nullptr) k_tile = (map_ndim == 3) ? map[e_map * gk + kk] : map[e_map];
+      split_step();
+      __syncthreads();
+      if (t + 1 < t_end) load_step(step_k0(t + 1), step_end(t + 1));  // in flight during the MMAs
+      mma_terms(k_tile);
+      __syncthreads();
+    }
   }
 
   auto store = [&](const Acc& frag, float* __restrict__ dst) {
@@ -291,7 +403,7 @@ __device__ __forceinline__ void rmpm_gemm_body(
     }
     store(acc, out);
     __syncthreads();  // every thread has read Cs before it is reused
-    store(comp, C_lo);
+    store(comp, C_lo + (long long)blockIdx.z * M * N);
   } else {
     store(acc, out);
   }
@@ -326,15 +438,45 @@ splitk_reduce(const float* __restrict__ ws, float* __restrict__ C,
   }
 }
 
+// hi, lo = the double-f32 kernel's split pairs combined in the order
+// s = 0, 1, ..., S-1: (s, c) = (hi_0, lo_0); each later hi_s is folded in
+// with TwoSum and lo_s added to c; the pair is renormalized at the end.
+// ws holds the hi halves [S, M, N], then the lo halves [S, M, N].
+__global__ void __launch_bounds__(256)
+splitk_reduce_dd(const float* __restrict__ ws, float* __restrict__ hi,
+                 float* __restrict__ lo, long long mn, int splits) {
+  const float* __restrict__ ws_lo = ws + splits * mn;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = ws[i], c = ws_lo[i];
+    for (int p = 1; p < splits; ++p) {
+      two_sum_fold(s, c, ws[p * mn + i]);
+      c = __fadd_rn(c, ws_lo[p * mn + i]);
+    }
+    float h = s, l = 0.0f;
+    two_sum_fold(h, l, c);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+inline int reduce_blocks(long long mn) {
+  return (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
+}
+
 // After the body's launch: its launch error, or the reduction's when the
-// body wrote `splits` > 1 partial tiles to ws.  Same stream, no sync.
+// body wrote `splits` > 1 partial tiles to ws.  Same stream, no sync.  With
+// `lo` (the double-f32 kernel) ws holds (hi, lo) pairs, which
+// `splitk_reduce_dd` folds into C and lo; else `splitk_reduce` adds them.
 inline int finish_splits(float* C, const float* ws, int M, int N, int splits,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, float* lo = nullptr) {
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long mn = (long long)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
-  splitk_reduce<<<blocks, 256, 0, stream>>>(ws, C, mn, splits);
+  if (lo == nullptr)
+    splitk_reduce<<<reduce_blocks(mn), 256, 0, stream>>>(ws, C, mn, splits);
+  else
+    splitk_reduce_dd<<<reduce_blocks(mn), 256, 0, stream>>>(ws, C, lo, mn, splits);
   return (int)cudaGetLastError();
 }
 

@@ -120,7 +120,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (a, b, c, workspace, map, map_ndim, m, n, k, kmax, bm, bn, bk, splits, stream)
     lib.rmpm_tile_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.rmpm_tile_matmul.restype = i
-    lib.rmpm_limb_matmul_dd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    # (a, b, hi, lo, workspace, m, n, k, limbs, bm, bn, bk, splits, stream)
+    lib.rmpm_limb_matmul_dd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rmpm_limb_matmul_dd.restype = i
     lib.rmpm_error_string.argtypes = [i]
     lib.rmpm_error_string.restype = ctypes.c_char_p

@@ -13,12 +13,23 @@ double-f32 pair, from the kernel for CUDA tensors and from
 ``bk`` slabs as the mode-map kernel, which is what makes a uniform map
 bit-identical to this kernel.
 
-Split-K.  The two kernels cut one thread block's K walk (``k_walk``: the
-steps of ``k_step(k)`` inside each ``bk`` slab) into ``S`` contiguous
-ranges run by separate thread blocks, and add the partial results in the
-fixed order s = 0..S-1.  ``split_k`` picks S for the card; the wrappers take
+Split-K.  The kernels cut one thread block's K walk (``k_walk``: the steps
+of ``k_step(k)`` inside each ``bk`` slab) into ``S`` contiguous ranges run
+by separate thread blocks, and combine the partial results in the fixed
+order s = 0..S-1: the limb and mode-map kernels add f32 partials
+(``reduce_splits``), the double-f32 kernel folds (hi, lo) pairs with TwoSum
+(``reduce_splits_dd``).  ``split_k`` picks S for the card; the wrappers take
 ``splits=`` only as an override for timing, and the plain versions take it
-so they sum the same partials in the same order.
+so they combine the same partials in the same order.
+
+At the serving shapes the kernels' bound is the weight's bytes; what holds
+them off it is a fixed cost per K step (barriers, the peel into limbs) and,
+for the double-f32 kernel, its TwoSum folds (``csrc/rmpm_gemm.cuh``).  All
+of them prefetch one K step into registers; the double-f32 kernel loads and
+peels four consecutive elements a thread, with 16-byte loads where the
+operand's base pointer, row length and blocks allow them and 4-byte loads
+elsewhere (a sliced operand, K = 33).  The kernel decides that from the
+pointers it is given, so no caller can misalign it.
 """
 from __future__ import annotations
 
@@ -271,15 +282,32 @@ def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return s, (a - (s - bb)) + (b - bb)
 
 
+def reduce_splits_dd(pairs: list[tuple[torch.Tensor, torch.Tensor]]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-split (hi, lo) pairs combined in the double-f32 kernel's order
+    (``splitk_reduce_dd``): (sum, comp) = (hi_0, lo_0); for s = 1..S-1, hi_s
+    folded into the pair with TwoSum and lo_s added to comp; then renormalized.
+    One pair is returned as it is (an unsplit launch writes it directly)."""
+    if len(pairs) == 1:
+        return pairs[0]
+    s, c = pairs[0]
+    for hi, lo in pairs[1:]:
+        s, e = _two_sum(s, hi)
+        c = (c + e) + lo
+    return _two_sum(s, c)
+
+
 def limb_matmul_dd_plain(a: torch.Tensor, b: torch.Tensor, k: int = 4, *,
-                         bk: int = 512, fold: int | None = None
+                         bk: int = 512, fold: int | None = None, splits: int = 1
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the double-f32 kernel: a (M, K) f32 @ b (K, N)
-    f32 at k-limb precision -> (hi, lo).  K is walked in ``bk`` slabs and,
-    inside a slab, in steps of ``fold``; every retained term's product over
-    one step (high order first) is folded into a (sum, compensation) pair
-    with TwoSum, and the pair is renormalized at the end.  ``fold=None``
-    folds once per slab, the TPU kernel's grain; the CUDA kernel's grain is
+    f32 at k-limb precision -> (hi, lo).  Each of ``splits`` splits walks its
+    pieces of K (``split_pieces``; one split: the ``bk`` slabs) and, inside a
+    piece, steps of ``fold``; every retained term's product over one step
+    (high order first) is folded into the split's (sum, compensation) pair
+    with TwoSum, and the pair is renormalized.  The pairs are combined by
+    ``reduce_splits_dd``.  ``fold=None`` folds once per piece — with one
+    split once per slab, the TPU kernel's grain; the CUDA kernel's grain is
     ``k_step(k)``, its K step."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
@@ -289,22 +317,24 @@ def limb_matmul_dd_plain(a: torch.Tensor, b: torch.Tensor, k: int = 4, *,
     m, kdim = a.shape
     n = b.shape[1]
     bk_ = clamp_block(bk, kdim)
-    step = bk_ if fold is None else fold
     al, bl = extract_limbs(a, k), extract_limbs(b, k)
-    s = torch.zeros((m, n), dtype=torch.float32, device=a.device)
-    c = torch.zeros_like(s)
-    for k0 in range(0, kdim, bk_):
-        k_end = min(k0 + bk_, kdim)
-        for f0 in range(k0, k_end, step):
-            f1 = min(f0 + step, k_end)
-            for i, j in limb_product_terms(k):
-                s, e = _two_sum(s, al[i][:, f0:f1] @ bl[j][f0:f1, :])
-                c = c + e
-    return _two_sum(s, c)
+    pairs = []
+    for pieces in split_pieces(kdim, bk_, k_step(k), splits):
+        s = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+        c = torch.zeros_like(s)
+        for _, k0, k1 in pieces:
+            step = k1 - k0 if fold is None else fold
+            for f0 in range(k0, k1, step):
+                f1 = min(f0 + step, k1)
+                for i, j in limb_product_terms(k):
+                    s, e = _two_sum(s, al[i][:, f0:f1] @ bl[j][f0:f1, :])
+                    c = c + e
+        pairs.append(_two_sum(s, c))
+    return reduce_splits_dd(pairs)
 
 
 def _launch_dd(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int,
-               bk: int) -> tuple[torch.Tensor, torch.Tensor]:
+               bk: int, splits: int) -> tuple[torch.Tensor, torch.Tensor]:
     check_gemm_operands(a2, b2, "limb_matmul_dd")
     if not 1 <= k <= 6:
         raise ValueError(f"limb_matmul_dd kernel supports 1..6 limbs, got {k}")
@@ -312,11 +342,15 @@ def _launch_dd(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int,
     n = b2.shape[1]
     hi = torch.empty((m, n), dtype=torch.float32, device=a2.device)
     lo = torch.empty_like(hi)
+    # hi halves of the split pairs, then lo halves: [2, S, M, N]
+    ws = None if splits == 1 else torch.empty((2, splits, m, n), dtype=torch.float32,
+                                              device=a2.device)
     lib = build.library()
     with torch.cuda.device(a2.device):
         code = lib.rmpm_limb_matmul_dd(
-            a2.data_ptr(), b2.data_ptr(), hi.data_ptr(), lo.data_ptr(), m, n,
-            kdim, k, bm, bn, bk, build.current_stream_ptr())
+            a2.data_ptr(), b2.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, kdim, k, bm, bn, bk, splits,
+            build.current_stream_ptr())
     build.check_launch(lib, code, "limb_matmul_dd")
     build.LAUNCHES["limb_matmul_dd"] += 1
     return hi, lo
@@ -330,10 +364,13 @@ def limb_matmul_dd(
     bm: int = 128,
     bn: int = 128,
     bk: int = 512,
+    splits: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """High-precision k-limb matmul a (M, K) @ b (K, N) returning a (hi, lo)
     double-f32 pair (M32 = 4 limbs, M48 = 6), through the fused kernel for
-    CUDA tensors.  Ragged shapes need no padding."""
+    CUDA tensors.  Ragged shapes need no padding.  ``splits`` overrides the
+    K split count (``None``: ``split_k`` on the card, 1 on the CPU); it
+    exists for timing the layouts side by side."""
     a2 = a.to(torch.float32)
     b2 = b.to(torch.float32)
     if a2.dim() != 2 or b2.dim() != 2:
@@ -342,6 +379,7 @@ def limb_matmul_dd(
     m, kdim = a2.shape
     n = b2.shape[1]
     _, (bm_, bn_, bk_) = tile_grid(m, n, kdim, bm=bm, bn=bn, bk=bk)
+    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k))
     if a2.is_cuda or b2.is_cuda:
-        return _launch_dd(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_)
-    return limb_matmul_dd_plain(a2, b2, k, bk=bk_)
+        return _launch_dd(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
+    return limb_matmul_dd_plain(a2, b2, k, bk=bk_, splits=s)

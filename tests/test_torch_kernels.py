@@ -202,7 +202,7 @@ class TestLimbMatmulDD:
     def test_cuda_branch_checks_operands_before_building(self, rng):
         a, b = _ab(rng, 8, 16, 8)
         with pytest.raises(ValueError, match="CUDA tensors"):
-            limb_ops._launch_dd(_t(a), _t(b), 4, 8, 8, 16)
+            limb_ops._launch_dd(_t(a), _t(b), 4, 8, 8, 16, 1)
         with pytest.raises(ValueError, match="2-D operands"):
             limb_matmul_dd(_t(a)[None], _t(b))
         assert build.BUILD_COUNT == 0
