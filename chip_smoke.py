@@ -14,9 +14,13 @@ serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
 table, and serves self-speculatively beside a plain arm, checking what comes
-out.  Every phase prints one JSON line; any failed phase ends the run with a
-non-zero exit code.  There is no CPU mode: without a GPU the script raises
-before it prints any result.
+out.  The engine runs its decode step, probe and speculative round as CUDA
+graphs (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt`` and
+``serve_spec`` also serve eagerly (``graphs.eager()``) and require the same
+tokens, and ``step_breakdown`` times a decode step both ways.  Every phase
+prints one JSON line; any failed phase ends the run with a non-zero exit
+code.  There is no CPU mode: without a GPU the script raises before it
+prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
@@ -25,6 +29,7 @@ the depth of the earlier serving phases' model (widths are never cut; the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -70,6 +75,7 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
 )
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: E402
 from repro_torch.plan import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdaptConfig,
@@ -78,6 +84,7 @@ from repro_torch.serve import (  # noqa: E402
     ServeEngine,
     ragged_requests,
 )
+from repro_torch.serve.graphs import eager  # noqa: E402
 from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.tune import TuneTable, tune  # noqa: E402
 
@@ -664,15 +671,36 @@ def full_width_model(policy: PrecisionPolicy, n_layers: int | None = None):
     return build_model(cfg)  # device=None: the GPU, or raise
 
 
-def serve(model, params, config: ServeConfig, reqs: list[Request], seed: int):
-    """Serve ``reqs`` through run_open_loop with the launch counts zeroed
-    just before and read just after.  Returns (engine, outputs, counts, s)."""
+def time_prefills(eng) -> None:
+    """Sum the host wall time of the engine's prefills (each ends in a
+    sync) into ``eng.prefill_s``, so a phase can say what share of its wall
+    time the eager prefill takes."""
+    eng.prefill_s = 0.0
+    prefill = eng._prefill_slot
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        first = prefill(*args)
+        eng.prefill_s += time.perf_counter() - t0
+        return first
+
+    eng._prefill_slot = timed
+
+
+def serve(model, params, config: ServeConfig, reqs: list[Request], seed: int,
+          eager_run: bool = False):
+    """Serve copies of ``reqs`` through run_open_loop with the launch counts
+    zeroed just before and read just after; the compiled steps are captured
+    and replayed, or run eagerly with ``eager_run``.  Returns (engine,
+    outputs, counts, s)."""
     eng = ServeEngine(model, params, config=config)
+    time_prefills(eng)
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    outs = run_open_loop(eng, reqs, 0.0, rng)
+    with eager() if eager_run else contextlib.nullcontext():
+        outs = run_open_loop(eng, [dataclasses.replace(r) for r in reqs], 0.0, rng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = build.launch_counts()
@@ -683,7 +711,16 @@ def serve(model, params, config: ServeConfig, reqs: list[Request], seed: int):
               f"request {r.rid}: {len(outs[r.rid])} tokens, budget {budget}")
         check(all(0 <= t < model.cfg.vocab for t in outs[r.rid]),
               f"request {r.rid}: token out of range")
+    check(eng.graph_capture_count == (0 if eager_run else 1),
+          f"{eng.graph_capture_count} CUDA graphs captured (eager={eager_run})")
     return eng, outs, counts, wall
+
+
+def check_same_tokens(got: dict, want: dict, what: str) -> None:
+    """Request by request, the same tokens (captured against eager)."""
+    check(sorted(got) == sorted(want), f"{what}: different requests completed")
+    for rid in want:
+        check(got[rid] == want[rid], f"{what}: request {rid} differs")
 
 
 def solo_tokens(model, params, req: Request, max_len: int) -> list[int]:
@@ -695,7 +732,13 @@ def solo_tokens(model, params, req: Request, max_len: int) -> list[int]:
 def serve_summary(eng, outs, wall) -> dict:
     s = eng.metrics.summary()
     total = sum(len(v) for v in outs.values())
+    steps = [g for g in (eng._step_graph, eng._round_graph, eng._probe_graph) if g is not None]
+    prefill_s = getattr(eng, "prefill_s", None)
     return {"requests": len(outs), "tokens": total, "wall_s": wall,
+            "prefill_s": prefill_s,
+            "prefill_share": None if prefill_s is None else prefill_s / wall,
+            "graph_captures": eng.graph_capture_count,
+            "capture_s": {g.name: g.capture_s for g in steps if g.capture_s is not None},
             "tok_per_s": total / wall, "ttft_s_mean": s.get("ttft_mean_s"),
             "ttft_s_max": max(eng.metrics.ttft(rid) for rid in outs),
             "decode_steps": s.get("decode_steps"),
@@ -703,52 +746,138 @@ def serve_summary(eng, outs, wall) -> dict:
             "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def replay_event_ms(fn, reps: int = 5) -> float:
+    """CUDA events around one ``fn()`` (one graph replay: the whole step is
+    queued at once, so the events bracket its device time), median of
+    ``reps`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
 def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
                    max_len: int = 96) -> dict:
-    """Where one decode step and one prefill spend their time: wall time of
-    each (host clock around a synchronised call, median of 5), the logits
-    site alone (the limb algebra over the vocabulary), kernel launches per
-    call, and the share of a decode step's wall time in which the card was
-    busy (sum of device kernel times from ``torch.profiler`` over the wall)."""
+    """Where one decode step and one prefill spend their time.  The decode
+    step is the engine's compiled step on a 4-slot engine whose rows hold
+    24 cached tokens, run captured (one graph replay) and eagerly
+    (``graphs.eager()``), in the order eager / captured / captured / eager:
+    wall time of each (host clock around a synchronised call, median of 5),
+    the share of a step's wall time in which the card was busy and the
+    device ms per step (sum of device kernel times from ``torch.profiler``),
+    the replay's device time by CUDA events, the step's split-K reductions
+    (``splitk_reduce``) from the profiler, and the device time of the
+    state's copy-back (the masked merge and ``copy_`` of every leaf that
+    ends each step).  Beside it: one 48-token prefill (eager), the logits
+    site alone, and kernel launches per call."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     vocab, d = model.cfg.vocab, model.cfg.d_model
     prompt = torch.randint(0, vocab, (1, prompt_len), generator=gen, device="cuda")
     solo0 = model.init_decode_state(1, max_len, per_slot=True)
-    prompts = torch.randint(0, vocab, (slots, prompt_len // 2), generator=gen, device="cuda")
-    _, state = model.decode_step(params, prompts,
-                                 model.init_decode_state(slots, max_len, per_slot=True))
-    tok = torch.randint(0, vocab, (slots, 1), generator=gen, device="cuda")
     x_dec = torch.randn((slots, 1, d), generator=gen, device="cuda")
     x_pre = torch.randn((1, prompt_len, d), generator=gen, device="cuda")
+    eng = ServeEngine(model, params, config=ServeConfig(batch_slots=slots, max_len=max_len))
+    rng = np.random.default_rng(11)
+    for i in range(slots):
+        eng.submit(Request(rng.integers(0, vocab, prompt_len // 2).astype(np.int32),
+                           max_len, rid=i))
+    eng.step()  # every slot prefilled, then the first decode step: warm-up, capture
+    step = eng._step_graph
+    check(step is not None and step.captures == 1, "the decode step was not captured")
+
+    def eager_step():
+        with eager():
+            step()
 
     before = build.launch_counts()
-    model.decode_step(params, tok, state)
+    eager_step()
     mid = build.launch_counts()
     model.decode_step(params, prompt, solo0)
     after = build.launch_counts()
+    walls = {"eager": [], "captured": []}
+    for label in ("eager", "captured", "captured", "eager"):
+        walls[label].append(wall_ms(eager_step if label == "eager" else step))
     out = {
         "slots": slots, "prompt_len": prompt_len, "cache_len": prompt_len // 2,
-        "decode_step_ms": wall_ms(lambda: model.decode_step(params, tok, state)),
+        "decode_step_ms_captured": walls["captured"],
+        "decode_step_ms_eager": walls["eager"],
+        "decode_step_ms": statistics.median(walls["captured"]),
+        "replay_event_ms": replay_event_ms(step),
+        "capture_s": step.capture_s,
         "decode_logits_ms": wall_ms(lambda: model._logits(params, x_dec)),
         "prefill_ms": wall_ms(lambda: model.decode_step(params, prompt, solo0)),
         "prefill_logits_ms": wall_ms(lambda: model._logits(params, x_pre)),
-        "launches_per_decode_step": {k: mid[k] - before[k] for k in mid},
+        "launches_per_decode_step": dict(step.launches),
+        "launches_per_decode_step_eager": {k: mid[k] - before[k] for k in mid},
         "launches_per_prefill": {k: after[k] - mid[k] for k in mid},
     }
+    check(out["launches_per_decode_step"] == out["launches_per_decode_step_eager"],
+          "a replay records other launches than an eager step makes")
     steps = 3
-    busy, device_ms, top = device_busy(lambda: model.decode_step(params, tok, state), steps)
-    out["profiled_decode_steps"] = steps
-    out["device_busy_share_under_profiler"] = busy
-    out["device_ms_per_decode_step"] = device_ms
-    out["top_device_kernels"] = top
+    for label, fn in (("captured", step), ("eager", eager_step)):
+        prof = device_busy(fn, steps)
+        reduce = [e for e in prof["events"] if "splitk_reduce" in e.key and "_dd" not in e.key]
+        out[label] = {
+            "profiled_decode_steps": steps,
+            "device_busy_share_under_profiler": prof["busy"],
+            "device_ms_per_decode_step": prof["device_ms"],
+            "top_device_kernels": prof["top"],
+            "splitk_reduce_calls_per_step": sum(e.count for e in reduce) / steps,
+            "splitk_reduce_device_ms_per_step":
+                sum(e.device_time_total for e in reduce) / steps / 1e3,
+        }
+    # the logits site bound to a run-time mode: as a host int it runs the
+    # mode's own products; as a device scalar (what a captured modal step
+    # binds) it makes all six products of the ladder's top and selects
+    for mode in (Mode.M8, Mode.M16, Mode.M24):
+        dev_mode = torch.tensor(int(mode), dtype=torch.int32, device="cuda")
+        for label, bound in (("host_int", int(mode)), ("device_scalar", dev_mode)):
+            def logits_at(i, bound=bound):
+                with bind_modes({"logits": bound}):
+                    model._logits(params, x_dec)
+            ms, _ = time_ms(logits_at, warmup=1, reps=3, samples=3)
+            out.setdefault("bound_logits_device_ms", {})[f"{mode.name} {label}"] = ms
+    # the copy-back alone, captured on its own as the step captures it: one
+    # step's new state merged into (clones of) the static state and copied
+    # there, as the end of every compiled step does
+    _, new_state = model.decode_step(params, eng._tokens, eng.state)
+    dst = map_state(lambda x: x.clone(), eng.state)
+
+    def copy_back():
+        copy_state_(dst, eng._merge(new_state, dst, eng._active_dev))
+
+    copy_back()  # warm-up
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        copy_back()
+    out["state_copy_back"] = {
+        "replay_event_ms": replay_event_ms(graph.replay),
+        "eager_wall_ms": wall_ms(copy_back),
+        "kernels": 2 * len(state_leaves(eng.state)),
+        "bytes": sum(x.numel() * x.element_size() for x in state_leaves(eng.state))}
+    wall = statistics.median(walls["captured"])
+    for label in ("captured", "eager"):
+        # kernel time over the un-profiled wall (the profiler slows the host)
+        out[label]["device_busy_share"] = (
+            out[label]["device_ms_per_decode_step"] / statistics.median(walls[label])
+            if out[label]["device_ms_per_decode_step"] else None)
+    out["replay_gap_ms"] = wall - out["replay_event_ms"]
     return out
 
 
-def device_busy(fn, calls: int) -> tuple[float | None, float | None, list[dict]]:
+def device_busy(fn, calls: int) -> dict:
     """``fn`` run ``calls`` times under ``torch.profiler``: the share of the
-    wall time in which the card ran a kernel (sum of device kernel times
-    over the wall), device ms per call, and the six kernels with the most
-    device time."""
+    wall time in which the card ran a kernel (``busy``: sum of device kernel
+    times over the wall), device ms per call, the six kernels with the most
+    device time and every device event."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -761,10 +890,12 @@ def device_busy(fn, calls: int) -> tuple[float | None, float | None, list[dict]]
               and str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(e.device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.device_time_total)[:6]
-    return ((busy_us / wall_us) if busy_us else None,
-            (busy_us / calls / 1e3) if busy_us else None,
-            [{"name": e.key[:60], "calls_per_step": e.count / calls,
-              "device_ms_per_step": e.device_time_total / calls / 1e3} for e in top])
+    return {"busy": (busy_us / wall_us) if busy_us else None,
+            "device_ms": (busy_us / calls / 1e3) if busy_us else None,
+            "top": [{"name": e.key[:60], "calls_per_step": e.count / calls,
+                     "device_ms_per_step": e.device_time_total / calls / 1e3}
+                    for e in top],
+            "events": events}
 
 
 def phase_serve_static(params_cache, n_layers):
@@ -773,7 +904,15 @@ def phase_serve_static(params_cache, n_layers):
     params = params_cache(model)
     reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(0))
     cfg = ServeConfig(batch_slots=4, max_len=96)
-    eng, outs, counts, wall = serve(model, params, cfg, reqs, seed=0)
+    # eager / captured / captured / eager: the first captured run is the
+    # main path (its launch counts go to the kernels line)
+    runs = {}
+    for label in ("eager", "captured", "captured_2", "eager_2"):
+        e, o, c, w = serve(model, params, cfg, reqs, seed=0, eager_run=label.startswith("eager"))
+        runs[label] = (e, o, c, w, serve_summary(e, o, w))
+    eng, outs, counts, wall, _ = runs["captured"]
+    for label, (_, other, _, _, _) in runs.items():
+        check_same_tokens(other, outs, f"serve_static {label} against captured")
     check(counts["limb_matmul"] > 0, "serve_static launched the limb kernel no time")
     check(counts["tile_matmul"] == 0, "static policy reached the mode-map kernel")
     solo_ok = []
@@ -794,9 +933,51 @@ def phase_serve_static(params_cache, n_layers):
     emit("serve_static", arch=ARCH, layers=model.cfg.n_layers, d_model=model.cfg.d_model,
          vocab=model.cfg.vocab, policy=policy.describe(), launches=counts,
          solo_equal_rids=solo_ok, logits_gap_vs_plain_over_spread=gap,
-         build_count=build.BUILD_COUNT, **serve_summary(eng, outs, wall),
+         build_count=build.BUILD_COUNT, captured_tokens_equal_eager=True,
+         **serve_summary(eng, outs, wall),
+         runs={label: run[4] for label, run in runs.items()},
          breakdown=step_breakdown(model, params))
     return counts
+
+
+def adapt_run(model, params, cfg: ServeConfig, reqs: list[Request], eager_run: bool):
+    """Serve ``reqs`` on an adaptive engine step by step, captured or eager,
+    with the launch counts zeroed just before.  Prefill runs unbound (limb
+    kernel), decode bound (mode-map kernel): a pure decode step must launch
+    no limb kernel.  After the third decode step every site is shifted one
+    mode down (besides the controller's own shifts), so the run crosses at
+    least one shift (one up if the controller already sat at the bottom).
+    Returns (engine, outputs, counts, s, capture counts
+    seen after each step once both compiled steps had run)."""
+    eng = ServeEngine(model, params, config=cfg)
+    time_prefills(eng)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    limb_after_prefill, captures, forced = None, set(), False
+    t0 = time.perf_counter()
+    with eager() if eager_run else contextlib.nullcontext():
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        while eng.scheduler.has_work():
+            before = build.launch_counts()
+            n_wait = eng.scheduler.n_waiting
+            eng.step()
+            after = build.launch_counts()
+            if n_wait == 0:  # a pure decode step: no admission, so no prefill
+                check(after["limb_matmul"] == before["limb_matmul"],
+                      "limb kernel launched during a bound decode step")
+                limb_after_prefill = after["limb_matmul"]
+            if eng.metrics.decode_steps and eng.controller.history:
+                captures.add(eng.graph_capture_count)  # both steps have run
+            if eng.metrics.decode_steps >= 3 and not forced:
+                table = eng.mode_table
+                forced = table.shift_all(1 if table.at_min else -1, tag="forced")
+        outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(limb_after_prefill is not None, "no pure decode step ran")
+    check(forced, "the forced mode shift did not move the table")
+    return eng, outs, build.launch_counts(), wall, captures
 
 
 def phase_serve_adapt(params_cache, n_layers):
@@ -806,39 +987,28 @@ def phase_serve_adapt(params_cache, n_layers):
     reqs = ragged_requests(4, model.cfg.vocab, 48, 16, np.random.default_rng(1))
     cfg = ServeConfig(batch_slots=4, max_len=96,
                       adapt=AdaptConfig(slo=SLO(max_err=0.05), adapt_every=2))
-    eng = ServeEngine(model, params, config=cfg)
-    # prefill runs unbound (limb kernel); decode runs bound (mode-map kernel)
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
-    limb_after_prefill = None
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    while eng.scheduler.has_work():
-        before = build.launch_counts()
-        n_wait = eng.scheduler.n_waiting
-        eng.step()
-        after = build.launch_counts()
-        if n_wait == 0:  # a pure decode step: no admission, so no prefill
-            check(after["limb_matmul"] == before["limb_matmul"],
-                  "limb kernel launched during a bound decode step")
-            limb_after_prefill = after["limb_matmul"]
-    outs = eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = build.launch_counts()
+    eng, outs, counts, wall, captures = adapt_run(model, params, cfg, reqs, eager_run=False)
+    e_eng, e_outs, _, e_wall, e_captures = adapt_run(model, params, cfg, reqs, eager_run=True)
     for r in reqs:
         check(len(outs[r.rid]) == eng.scheduler.tickets[r.rid].budget,
               f"request {r.rid} incomplete")
+    check_same_tokens(outs, e_outs, "serve_adapt eager against captured")
+    check(eng.metrics.mode_timeline == e_eng.metrics.mode_timeline,
+          "serve_adapt: the captured and eager mode timelines differ")
     check(counts["tile_matmul"] > 0, "serve_adapt launched the mode-map kernel no time")
-    check(limb_after_prefill is not None, "no pure decode step ran")
     check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 after mode shifts")
     check(len(eng.controller.history) > 0, "no probe ran")
+    # one graph per compiled step (decode step, probe) across every shift
+    check(captures == {2} and eng.graph_capture_count == 2,
+          f"capture counts {sorted(captures)} across mode shifts (want only 2)")
+    check(e_captures == {0}, f"the eager run captured {sorted(e_captures)}")
     emit("serve_adapt", policy=policy.describe(), launches=counts,
-         build_count=build.BUILD_COUNT, probes=len(eng.controller.history),
+         build_count=build.BUILD_COUNT, graph_capture_counts_seen=sorted(captures),
+         probes=len(eng.controller.history),
          mode_switches=eng.mode_table.switches,
          mode_timeline=[[int(s), lab] for s, lab in eng.metrics.mode_timeline],
-         adaptation=eng.describe_adaptation(), **serve_summary(eng, outs, wall))
+         adaptation=eng.describe_adaptation(), captured_tokens_equal_eager=True,
+         **serve_summary(eng, outs, wall), eager=serve_summary(e_eng, e_outs, e_wall))
     return counts
 
 
@@ -927,16 +1097,21 @@ def phase_serve_spec(params_cache):
     params = params_cache(model)
     reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(4))
     spec = SpecConfig(k=3, draft_shift=2)
+    cfgs = {"plain": ServeConfig(batch_slots=4, max_len=96),
+            "spec": ServeConfig(batch_slots=4, max_len=96, spec=spec)}
     arms = {}
-    for name, cfg in (("plain", ServeConfig(batch_slots=4, max_len=96)),
-                      ("spec", ServeConfig(batch_slots=4, max_len=96, spec=spec))):
-        e, o, c, w = serve(model, params, cfg, [dataclasses.replace(r) for r in reqs], seed=4)
+    for name, eager_run in (("plain", False), ("spec", False), ("spec_eager", True),
+                            ("plain_eager", True)):
+        e, o, c, w = serve(model, params, cfgs[name.split("_")[0]], reqs, seed=4,
+                           eager_run=eager_run)
         arms[name] = (e, o, c, w, serve_summary(e, o, w))
     eng, outs, counts, wall, summary = arms["spec"]
     _, base_outs, base_counts, base_wall, base_summary = arms["plain"]
     for r in reqs:
         check(outs[r.rid] == base_outs[r.rid],
               f"request {r.rid}: speculative tokens != plain tokens")
+    check_same_tokens(arms["spec_eager"][1], outs, "serve_spec eager against captured")
+    check_same_tokens(arms["plain_eager"][1], base_outs, "serve_spec plain eager against captured")
     s = eng.metrics.summary()
     check(s["acceptance_rate"] is not None and s["acceptance_rate"] > 0,
           f"acceptance {s['acceptance_rate']}")
@@ -961,14 +1136,22 @@ def phase_serve_spec(params_cache):
     def one_round():
         eng._spec_round(params, tok, state, active, draft, verify)
 
-    busy, device_ms, top = device_busy(one_round, 2)
+    # the engine's compiled round (captured while serving), on its own static
+    # inputs and state: one replay
+    round_graph = eng._round_graph
+    prof, prof_c = device_busy(one_round, 2), device_busy(round_graph, 2)
     substeps = {
         "draft_substep_ms": wall_ms(draft_substep),
         "verify_substep_ms": wall_ms(lambda: model.decode_step(params, tok, state)),
         "round_ms": wall_ms(one_round),
-        "round_device_busy_share_under_profiler": busy,
-        "round_device_ms": device_ms,
-        "round_top_device_kernels": top,
+        "round_device_busy_share_under_profiler": prof["busy"],
+        "round_device_ms": prof["device_ms"],
+        "round_top_device_kernels": prof["top"],
+        "round_captured_ms": wall_ms(round_graph),
+        "round_captured_replay_event_ms": replay_event_ms(round_graph),
+        "round_captured_device_busy_share_under_profiler": prof_c["busy"],
+        "round_captured_device_ms": prof_c["device_ms"],
+        "round_capture_s": round_graph.capture_s,
     }
     emit("serve_spec", arch=ARCH, layers=model.cfg.n_layers, policy=policy.describe(),
          k=spec.k, draft_shift_start=spec.draft_shift, draft_shift_end=eng.draft_shift,
@@ -978,8 +1161,11 @@ def phase_serve_spec(params_cache):
          speculation=eng.describe_speculation(), build_count=build.BUILD_COUNT,
          spec_compile_count=eng.spec_compile_count,
          launches_spec=counts, launches_plain=base_counts,
-         spec=summary, plain=base_summary,
+         spec=summary, plain=base_summary, captured_tokens_equal_eager=True,
+         spec_eager=arms["spec_eager"][4], plain_eager=arms["plain_eager"][4],
          tok_per_s_ratio=summary["tok_per_s"] / base_summary["tok_per_s"],
+         tok_per_s_ratio_eager=(arms["spec_eager"][4]["tok_per_s"]
+                                / arms["plain_eager"][4]["tok_per_s"]),
          host_cost_4_slots=substeps)
     return counts
 

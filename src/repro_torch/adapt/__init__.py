@@ -5,9 +5,9 @@ according to different accuracy requirements by reconfiguring itself during
 run time" — as a feedback loop over the RMPM engine:
 
     runtime_policy.py  mutable site->mode table + the binding layers read
-                       (the mode-select bits as host ints: nothing is built
-                       when they change, and the tile kernel reads them as
-                       data)
+                       (the mode-select bits as host ints, or as device
+                       scalars for captured steps: nothing is built when
+                       they change, and the kernels read them as data)
     probe.py           online error probes (shadow-forward logit residual,
                        sampled-row matmul residual)
     controller.py      SLO + dual-threshold hysteresis controller
@@ -24,6 +24,7 @@ from repro_torch.adapt.probe import (  # noqa: F401
 )
 from repro_torch.adapt.runtime_policy import (  # noqa: F401
     DEFAULT_SITES,
+    DeviceModes,
     ModeTable,
     bind_modes,
     runtime_mode_for,

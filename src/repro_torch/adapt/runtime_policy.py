@@ -6,14 +6,19 @@ re-synthesis when they change.  Here: the table is host state, its modes
 are host ints; `models/layers.pmm` routes a bound site through the
 mode-map kernel, which reads the mode from a device int32 map inside ONE
 kernel, and `pein` branches on the host int.  Changing a mode between steps
-changes data, never what is built, and costs no host sync.
+changes data, never what is built, and costs no host sync.  The serving
+engine binds the table's *device view* instead (:class:`DeviceModes`, one
+int32 device scalar per site), so that its steps, captured once as CUDA
+graphs, read the modes as data: `pein` then selects on the device.
 
-Two pieces:
+Three pieces:
 
   * :class:`ModeTable` — host-side mutable ``site -> Mode`` map over the
     runtime-switchable f32 ladder {M8, M16, M24}.  The planner's static pick
     (``ModeTable.from_plans``) is merely the table's initial condition; the
     controller (`repro_torch.adapt.controller`) shifts it afterwards.
+  * :class:`DeviceModes` — ``ModeTable.device_view``: the table's modes as
+    device scalars, rewritten between steps.
   * :func:`bind_modes` — a context manager installing the table's modes
     for the duration of one step.  ``pmm``/``pein`` consult
     :func:`runtime_mode_for`; unbound sites keep their static plan, so a
@@ -23,6 +28,8 @@ from __future__ import annotations
 
 import contextlib
 from typing import Any, Iterable, Mapping
+
+import torch
 
 from repro_torch.core.precision import F32_MODES, Mode
 
@@ -138,6 +145,10 @@ class ModeTable:
             self._scalar_cache[delta] = cached
         return cached
 
+    def device_view(self, device) -> "DeviceModes":
+        """A new device view over this table's sites (see DeviceModes)."""
+        return DeviceModes(tuple(self._modes), device)
+
     def label(self) -> str:
         names = sorted({m.name for m in self._modes.values()})
         return names[0] if len(names) == 1 else "/".join(names)
@@ -193,3 +204,32 @@ class ModeTable:
 
     def describe(self) -> str:
         return ", ".join(f"{k}={v.name}" for k, v in sorted(self._modes.items()))
+
+
+class DeviceModes:
+    """One 0-d int32 device tensor per call-site: what a step captured as a
+    CUDA graph binds (``bind_modes(view.scalars)``) in place of host ints.
+    The graph reads the scalars' memory, so ``write`` between replays
+    changes the modes the next replay runs, and nothing is built or
+    captured again.  Each step object owns its view; the probe rewrites its
+    own three times a tick (current, reference, one down)."""
+
+    def __init__(self, sites: Iterable[str], device):
+        self.sites = tuple(sites)
+        self._buf = torch.zeros((len(self.sites),), dtype=torch.int32,
+                                device=device)
+        #: site -> 0-d view into one device vector (one copy writes all)
+        self.scalars = {site: self._buf[i] for i, site in enumerate(self.sites)}
+        self._written: tuple[int, ...] | None = None
+
+    def write(self, modes: Mapping[str, Any]) -> None:
+        """Store host ``modes`` (a ``ModeTable.scalars*()`` dict) for the
+        next step.  One host-to-device copy, enqueued on the current stream
+        ahead of the step and skipped when nothing changed; the source is
+        pageable memory, which CUDA stages before ``copy_`` returns, so the
+        view may be written again before the device has read it."""
+        vals = tuple(int(modes[site]) for site in self.sites)
+        if vals != self._written:
+            self._buf.copy_(torch.tensor(vals, dtype=torch.int32),
+                            non_blocking=True)
+            self._written = vals

@@ -5,8 +5,9 @@ single FP multiply to the GPU's unit of work: a matmul on the tensor cores.
 
   * ``mp_matmul(a, b, mode)``         — static-mode k-limb matmul
   * ``mp_matmul_runtime(a, b, mode)`` — run-time mode; with ``impl='tile'``
-        the mode is data read inside ONE kernel, otherwise a host-side
-        branch over the static paths
+        the mode is data read inside ONE kernel; otherwise a host int
+        branches on the host over the static paths and a device scalar
+        selects among them on the device (no read-back)
   * ``mp_einsum(eq, a, b, mode)``     — same engine for arbitrary
         contractions (attention scores, attention-value, logits, ...)
 
@@ -112,6 +113,54 @@ def _limb_einsum(
         p = torch.einsum(eq, a_f[i], b_f[j])
         acc = p if acc is None else acc + p
     return acc
+
+
+def _limb_einsum_ladder(eq: str, a, b, rounding: str = "rne") -> list[Tensor]:
+    """``_limb_einsum(eq, a, b, k)`` at every f32-ladder mode, in ladder
+    order, bit for bit, from ONE set of limb products.
+
+    For an f32 operand ``split_limbs(x, k)``'s leading limbs do not depend on
+    ``k`` (its loop only stops sooner), so each retained product is made
+    once at the ladder's top and shared.  The sums are NOT: the terms are
+    ordered smallest first (``limb_product_terms``), so k = 3's order does
+    not extend k = 2's and each mode folds its own terms in its own order."""
+    kmax = MODE_LIMBS[F32_MODES[-1]]
+    a_limbs = limb_lib.split_limbs(a, kmax, rounding)
+    b_limbs = limb_lib.split_limbs(b, kmax, rounding)
+    require_full_f32_matmul(a_limbs.device)
+    a_f = [x.to(torch.float32) for x in a_limbs]
+    b_f = [x.to(torch.float32) for x in b_limbs]
+    del a_limbs, b_limbs
+    products = {(i, j): torch.einsum(eq, a_f[i], b_f[j])
+                for i, j in limb_lib.limb_product_terms(kmax)}
+    out = []
+    for mode in F32_MODES:
+        acc = None
+        for ij in limb_lib.limb_product_terms(MODE_LIMBS[mode]):
+            acc = products[ij] if acc is None else acc + products[ij]
+        out.append(acc)
+    return out
+
+
+def _mode_select(mode: Tensor, branches: Sequence[Tensor]) -> Tensor:
+    """``branches[i]`` is a result at ``F32_MODES[i]``: return the one an
+    int32 device scalar ``mode`` names, clamped to the ladder as the host
+    path clamps.  The choice is made by ``torch.where`` on the device, with
+    no read-back, so it survives CUDA-graph capture — the port's
+    counterpart of the reference's ``lax.switch``."""
+    m = mode.to(device=branches[0].device, dtype=torch.int32)
+    out = branches[-1]
+    for i in range(len(branches) - 2, -1, -1):
+        out = torch.where(m <= int(F32_MODES[i]), branches[i], out)
+    return out
+
+
+def _matmul_eq(ndim: int) -> str:
+    """The einsum ``mp_matmul`` runs an ``ndim``-D left operand through."""
+    if ndim == 2:
+        return "mk,kn->mn"
+    lead = "uvwxyz"[: ndim - 1]
+    return f"{lead}k,kn->{lead}n"
 
 
 def _limb_matmul_dd(a, b, k: int, rounding: str = "rne") -> DoubleF32:
@@ -231,14 +280,10 @@ def mp_matmul(
             )
         return limb_ops.limb_matmul(a, b, MODE_LIMBS[mode], rounding=rounding)
     shape_a = a.hi.shape if isinstance(a, DoubleF32) else a.shape
-    if len(shape_a) == 2:
-        if mode in DF32_MODES and impl == "xla":
-            return _limb_matmul_dd(a, b, MODE_LIMBS[mode], rounding)
-        return mp_einsum("mk,kn->mn", a, b, mode, rounding=rounding, impl=impl,
-                         device=dev)
-    lead = "uvwxyz"[: len(shape_a) - 1]
-    eq = f"{lead}k,kn->{lead}n"
-    return mp_einsum(eq, a, b, mode, rounding=rounding, impl=impl, device=dev)
+    if len(shape_a) == 2 and mode in DF32_MODES and impl == "xla":
+        return _limb_matmul_dd(a, b, MODE_LIMBS[mode], rounding)
+    return mp_einsum(_matmul_eq(len(shape_a)), a, b, mode, rounding=rounding,
+                     impl=impl, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +293,8 @@ def mp_matmul(
 
 def _host_mode(mode) -> int:
     """A run-time mode as a host int.  A device tensor has to be read back
-    (one sync): only the host-branch paths do this — the tile path never."""
+    (one sync): only the DF32 switch does this — the f32 paths select on
+    the device instead."""
     if isinstance(mode, torch.Tensor):
         return int(mode.item())
     return int(mode)
@@ -268,15 +314,18 @@ def mp_matmul_runtime(
 ) -> Tensor:
     """Runtime-reconfigurable matmul over the f32 mode set {M8, M16, M24}.
 
-    ``mode`` may be a host int (the serving engine's mode table holds host
-    ints) or a device int32 scalar.  ``Mode.AUTO`` (0) probes the operands
-    and picks the cheapest adequate mode.
+    ``mode`` may be a host int (a ModeTable's ``scalars()``) or a device
+    int32 scalar (its ``device_view``, which the serving engine binds so
+    that a captured step reads its mode as data).  ``Mode.AUTO`` (0) probes
+    the operands and picks the cheapest adequate mode.
 
     ``impl='tile'`` is the run-time path proper: the mode becomes a uniform
     map in device memory read by ONE kernel, so no branch is taken on the
-    host and nothing is built when the mode changes.  The other impls branch
-    on the host over the static paths; a host int costs nothing there, a
-    device scalar one read-back.
+    host and nothing is built when the mode changes.  The other impls
+    branch on a host int over the static paths; a device scalar computes
+    every static branch (for ``'xla'`` from one shared set of limb products)
+    and selects on the device (``_mode_select``), bit-equal to the host
+    branch at every mode and with no read-back.
 
     ``allow_auto=False`` asserts the mode is concrete (1..3), never
     ``Mode.AUTO``: the operand-occupancy probe, which reads both operands
@@ -303,6 +352,13 @@ def mp_matmul_runtime(
         return tile_ops.tile_matmul_runtime(
             a, b, selected, rounding=rounding, bm=bm, bn=bn, bk=bk
         )
+    if isinstance(selected, torch.Tensor):
+        if impl == "xla":
+            branches = _limb_einsum_ladder(_matmul_eq(a.dim()), a, b, rounding)
+        else:
+            branches = [mp_matmul(a, b, m, rounding=rounding, impl=impl,
+                                  block=block, device=dev) for m in F32_MODES]
+        return _mode_select(selected, branches)
     idx = min(max(_host_mode(selected) - 1, 0), len(F32_MODES) - 1)
     return mp_matmul(a, b, F32_MODES[idx], rounding=rounding, impl=impl,
                      block=block, device=dev)
@@ -325,6 +381,11 @@ def mp_einsum_runtime(
 
     ``impl='native'`` is rejected: its branches would all compute the same
     plain f32 einsum, silently turning the mode switch into a no-op.
+
+    A device int32 ``mode`` is selected on the device, as in
+    ``mp_matmul_runtime``: a general contraction makes its limb products
+    once (``_limb_einsum_ladder``) and folds them per mode.  A site bound
+    this way pays the ladder top's k(k+1)/2 = 6 products at every mode.
     """
     if impl == "native":
         raise ValueError(
@@ -341,6 +402,14 @@ def mp_einsum_runtime(
         # General contractions have no tile kernel; keep the branch over the
         # plain limb algebra rather than silently changing numerics.
         impl = "xla"
+    if isinstance(mode, torch.Tensor):
+        a, b = _place(a, dev), _place(b, dev)
+        if impl == "pallas" and eq == "mk,kn->mn":
+            branches = [mp_matmul(a, b, m, rounding=rounding, impl=impl,
+                                  block=block, device=dev) for m in F32_MODES]
+        else:
+            branches = _limb_einsum_ladder(eq, a, b, rounding)
+        return _mode_select(mode, branches)
     idx = min(max(_host_mode(mode) - 1, 0), len(F32_MODES) - 1)
     return mp_einsum(eq, a, b, F32_MODES[idx], rounding=rounding, impl=impl,
                      block=block, device=dev)

@@ -182,6 +182,7 @@ def main(argv: list[str] | None = None) -> None:
     print(eng.format_describe())
     if args.adapt or args.speculate:
         print(f"kernel library builds: {eng.kernel_build_count}")
+    print(f"CUDA graphs captured: {eng.graph_capture_count}")
     stats = plan_cache_stats()
     print(f"plan cache: {stats.entries} entries, "
           f"{stats.hits} hits / {stats.misses} misses (process-wide)")

@@ -43,8 +43,9 @@ def pmm(x: Tensor, w: Tensor, op: str, policy: PrecisionPolicy) -> Tensor:
     mode becomes merely the initial condition.  Tile-eligible plans
     (``Plan.tile_eligible``: pallas-class f32 plans) take the mode-map
     kernel — the mode becomes a uniform per-tile map read inside ONE launch,
-    bit-identical to the limb kernel at that mode; other impls branch on the
-    host over the static paths.  Only f32-ladder plans are switchable;
+    bit-identical to the limb kernel at that mode; other impls branch on a
+    host int over the static paths, or select among them on the device for
+    a device scalar (what the engine's captured steps bind).  Only f32-ladder plans are switchable;
     DF32/Strassen plans keep their static path.
     """
     plan = plan_matmul(
@@ -337,7 +338,7 @@ def flash_attention(
     if kv_positions is None:
         kv_positions = torch.arange(n_chunks * chunk, dtype=torch.int32, device=dev)
         kv_positions = torch.where(
-            kv_positions < torch.as_tensor(kv_len, device=dev), kv_positions,
+            kv_positions < kv_len, kv_positions,
             torch.full_like(kv_positions, -1))
 
     qg = q.reshape(b, sq, hkv, g, hd).to(torch.float32) * (hd**-0.5)

@@ -68,6 +68,22 @@ def map_state(fn, *states: DecodeState) -> DecodeState:
     )
 
 
+def state_leaves(state: DecodeState) -> list[Tensor]:
+    """Every tensor leaf of a DecodeState, in ``map_state``'s order."""
+    leaves = [getattr(node, f.name) for layers in state.caches.values()
+              for node in layers for f in dataclasses.fields(KVCache)]
+    leaves += [state.position, state.enc_out]
+    return [x for x in leaves if x is not None]
+
+
+def copy_state_(dst: DecodeState, src: DecodeState) -> None:
+    """Write every leaf of ``src`` into the tensors of ``dst`` (same
+    structure), in place: ``dst``'s buffers outlive the call, as the static
+    state of a captured step must."""
+    for d, s in zip(state_leaves(dst), state_leaves(src), strict=True):
+        d.copy_(s)
+
+
 def layer_params(stacked: Params, i: int) -> Params:
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     if isinstance(stacked, dict):

@@ -35,6 +35,16 @@ slot through the mode-map kernel, the exact baseline step verifies all
 ``k+1`` positions, and a rollback-select restores each slot to its accepted
 prefix — outputs stay identical to this engine's plain greedy decode.
 
+The steps the reference compiles with ``jax.jit`` — the masked step, the
+modal step, the probe and the speculative round — are compiled steps here
+(repro_torch.serve.graphs): on the card each is captured once as a CUDA
+graph and every later call is ONE replay.  They read and write buffers that
+outlive them: static inputs (``_tokens``, ``_active_dev`` and a device view
+of each mode table, rewritten between replays) and the static decode state
+``self.state``, whose tensors are written in place (``copy_``) and never
+rebound.  On the CPU the same steps run eagerly on the same buffers.
+Prefill stays eager: its length varies per request.
+
 The host waits for the device only where the reference does: once per
 decode step (the produced tokens), once per speculative round (drafts,
 verify tokens and acceptance together), once per prefill (the first token),
@@ -50,7 +60,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.lm import LanguageModel, map_state
+from repro_torch.models.lm import LanguageModel, copy_state_, map_state, state_leaves
 from repro_torch.obs import NULL_TRACER, TraceConfig, Tracer
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import ServeMetrics
@@ -235,6 +245,8 @@ class ServeEngine:
         self.layout = make_layout(cfg.cache, self.model_decode,
                                   batch_slots, max_len)
         self.layout.tracer = self.tracer
+        #: the static decode state: compiled steps read and write these
+        #: tensors in place, so they are never rebound (``_set_state``)
         self.state = self.layout.init()
         # solo-prefill template: one per-slot row, reused for every prefill
         # (decode_step never modifies the state it is given)
@@ -273,6 +285,7 @@ class ServeEngine:
         self.spec = None
         if cfg.spec is not None:
             self._init_spec(cfg.spec)
+        self._init_compiled_steps()
 
     def _init_spec(self, spec) -> None:
         """Wire the speculative round: the verify table is the engine's live
@@ -307,6 +320,34 @@ class ServeEngine:
             modal_verify=self.slo is not None)
         self._spec_window = [0, 0]  # (drafted, agreed) since last tick
 
+    def _init_compiled_steps(self) -> None:
+        """The static inputs and one compiled step (repro_torch.serve.graphs)
+        per step this engine runs: the decode step (plain, or modal when it
+        adapts) or the speculative round, and the probe when it adapts."""
+        from repro_torch.serve.graphs import CompiledStep
+
+        dev = self.device
+        self._tokens = torch.zeros((self.slots, 1), dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
+        leaves = state_leaves(self.state)
+        self._step_graph = self._round_graph = self._probe_graph = None
+        if self.spec is not None:
+            self._draft_modes = self._spec_table.device_view(dev)
+            self._verify_modes = (self._spec_table.device_view(dev)
+                                  if self.slo is not None else None)
+            self._round_graph = CompiledStep(
+                self._spec_round_body, dev, name="spec_round", mutates=leaves)
+        elif self.slo is not None:
+            self._step_modes = self.mode_table.device_view(dev)
+            self._step_graph = CompiledStep(
+                self._modal_step_body, dev, name="masked_step_modal", mutates=leaves)
+        else:
+            self._step_graph = CompiledStep(
+                self._plain_step_body, dev, name="masked_step", mutates=leaves)
+        if self.slo is not None:
+            self._probe_modes = self.mode_table.device_view(dev)
+            self._probe_graph = CompiledStep(self._probe_body, dev, name="probe")
+
     # -- the steps -------------------------------------------------------------
 
     def _merge(self, new_state, state, active):
@@ -325,9 +366,9 @@ class ServeEngine:
 
     def _masked_step_modal(self, params, tokens, state, active, modes):
         """The masked step with the mode table bound: ``modes`` is a dict of
-        host ints, so every table mutation between steps changes only the
-        data the mode-map kernel reads — the paper's run-time
-        reconfiguration, with nothing built."""
+        host ints or of device scalars (a ``DeviceModes`` view), so every
+        table mutation between steps changes only the data the kernels read
+        — the paper's run-time reconfiguration, with nothing built."""
         from repro_torch.adapt import bind_modes
 
         with bind_modes(modes):
@@ -336,21 +377,45 @@ class ServeEngine:
         merged = self._merge(new_state, state, active)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), merged
 
-    def _probe_fn(self, params, tokens, state, active, cur, ref, down):
-        """Shadow-forward error probe: the decode step replayed at the
-        current, max-mode-reference and one-mode-down tables (same kernels,
-        different modes; state discarded).  Returns (err_current,
-        err_one_down) as the normalized logit residual over active slots."""
-        from repro_torch.adapt import bind_modes, logit_residual
+    # -- the compiled steps' bodies: static inputs in, static state written --
 
-        def fwd(modes):
-            with bind_modes(modes):
-                logits, _ = self.model_decode.decode_step(params, tokens, state)
-            return logits[:, -1]
+    def _plain_step_body(self):
+        next_tok, merged = self._masked_step(
+            self.params, self._tokens, self.state, self._active_dev)
+        copy_state_(self.state, merged)
+        return next_tok
 
-        l_cur, l_ref, l_down = fwd(cur), fwd(ref), fwd(down)
-        return (logit_residual(l_cur, l_ref, active),
-                logit_residual(l_down, l_ref, active))
+    def _modal_step_body(self):
+        next_tok, merged = self._masked_step_modal(
+            self.params, self._tokens, self.state, self._active_dev,
+            self._step_modes.scalars)
+        copy_state_(self.state, merged)
+        return next_tok
+
+    def _probe_body(self):
+        """One shadow forward at the probe view's modes; the state is read,
+        never written (``decode_step`` is out of place)."""
+        from repro_torch.adapt import bind_modes
+
+        with bind_modes(self._probe_modes.scalars):
+            logits, _ = self.model_decode.decode_step(
+                self.params, self._tokens, self.state)
+        return logits[:, -1]
+
+    def _spec_round_body(self):
+        drafts, greedy, n_acc, new_state = self._spec_round(
+            self.params, self._tokens, self.state, self._active_dev,
+            self._draft_modes.scalars,
+            {} if self._verify_modes is None else self._verify_modes.scalars)
+        copy_state_(self.state, new_state)
+        # (k, B) drafts, (k+1, B) verify tokens, (B,) acceptance: one read
+        return torch.cat([drafts, greedy, n_acc[None]])
+
+    def _set_state(self, new_state) -> None:
+        """Make ``new_state`` the engine's state by writing it into the
+        static state's tensors (a compiled step holds their addresses)."""
+        if new_state is not self.state:
+            copy_state_(self.state, new_state)
 
     # -- streaming API -------------------------------------------------------
 
@@ -432,7 +497,7 @@ class ServeEngine:
         self._parked[victim.rid] = (
             self.layout.gather_row(self.state, slot),
             int(self._row_len[slot]))
-        self.state = self.layout.free_row(self.state, slot)
+        self._set_state(self.layout.free_row(self.state, slot))
         self._active[slot] = False
         self.scheduler.preempt(victim.rid)
         self.metrics.on_preempt(victim.rid)
@@ -447,8 +512,8 @@ class ServeEngine:
         is emitted and no prefill runs — the next masked step continues
         from ``ticket.tokens[-1]`` exactly as if the gap never happened."""
         row, length = self._parked.pop(ticket.rid)
-        self.state = self.layout.scatter_row(
-            self.state, row, slot, length=length)
+        self._set_state(self.layout.scatter_row(
+            self.state, row, slot, length=length))
         self._row_len[slot] = length
         self._active[slot] = True
         self._last_tok[slot] = ticket.tokens[-1]
@@ -466,25 +531,28 @@ class ServeEngine:
         return counts
 
     def _device_inputs(self):
-        tokens = torch.as_tensor(self._last_tok[:, None].copy(), device=self.device)
-        active = torch.as_tensor(self._active.copy(), device=self.device)
-        return tokens, active
+        """Write the host slot mirrors into the static inputs and return them
+        (``tokens`` (B, 1) int32, ``active`` (B,) bool).  The copies are
+        enqueued ahead of the step from pageable memory, which CUDA stages
+        before ``copy_`` returns: no sync, and the mirrors may change at
+        once."""
+        self._tokens.copy_(torch.from_numpy(self._last_tok[:, None]), non_blocking=True)
+        self._active_dev.copy_(torch.from_numpy(self._active), non_blocking=True)
+        return self._tokens, self._active_dev
 
     def _decode_step(self) -> list[tuple[int, int]]:
-        """One masked batched decode step (the non-speculative path)."""
+        """One masked batched decode step (the non-speculative path): one
+        replay of the plain or the modal compiled step."""
         events: list[tuple[int, int]] = []
-        tokens, active = self._device_inputs()
+        self._device_inputs()
         tenant_active = self._tenant_active()
         t0 = time.perf_counter()
         if self.slo is not None:
-            scalars, label = self.mode_table.scalars(), self.mode_table.label()
-            next_tok, self.state = self._masked_step_modal(
-                self.params, tokens, self.state, active, scalars)
+            label = self.mode_table.label()
+            self._step_modes.write(self.mode_table.scalars())
         else:
             label = self._static_decode_label
-            next_tok, self.state = self._masked_step(
-                self.params, tokens, self.state, active)
-        produced = next_tok.cpu().numpy()  # syncs the step
+        produced = self._step_graph().cpu().numpy()  # syncs the step
         self._last_step_ms = (time.perf_counter() - t0) * 1e3
         n_active = int(self._active.sum())
         self.metrics.on_decode_step(
@@ -508,16 +576,13 @@ class ServeEngine:
         decode budget); the round rolls the state back on the device."""
         events: list[tuple[int, int]] = []
         active_np = self._active.copy()
-        tokens, active = self._device_inputs()
+        self._device_inputs()
         k = self.spec.k
         t0 = time.perf_counter()
-        drafts, greedy, n_acc, self.state = self._spec_round(
-            self.params, tokens, self.state, active,
-            self._spec_table.scalars_shifted(-self.draft_shift),
-            self._spec_table.scalars(),
-        )
-        # (k, B) drafts, (k+1, B) verify tokens, (B,) acceptance: one sync
-        host = torch.cat([drafts, greedy, n_acc[None]]).cpu().numpy()
+        self._draft_modes.write(self._spec_table.scalars_shifted(-self.draft_shift))
+        if self._verify_modes is not None:
+            self._verify_modes.write(self._spec_table.scalars())
+        host = self._round_graph().cpu().numpy()  # the round's one sync
         drafts, greedy, n_acc = host[:k], host[k:2 * k + 1], host[2 * k + 1]
         self._last_step_ms = (time.perf_counter() - t0) * 1e3
         n_active = int(active_np.sum())
@@ -592,19 +657,37 @@ class ServeEngine:
             return self._accept_ctrl.shift
         return self._draft_shift
 
+    def _probe_fn(self, cur, ref, down) -> tuple[float, float]:
+        """Shadow-forward error probe: the decode step replayed at the
+        current, max-mode-reference and one-mode-down host tables (same
+        kernels, different modes; state read, never written) — three
+        replays of the compiled probe, its device view rewritten between
+        them.  Returns (err_current, err_one_down), the normalized logit
+        residuals over active slots, read back with one sync."""
+        from repro_torch.adapt import logit_residual
+
+        logits = []
+        for modes in (cur, ref, down):
+            self._probe_modes.write(modes)
+            logits.append(self._probe_graph().clone())  # the next replay reuses it
+        l_cur, l_ref, l_down = logits
+        errs = torch.stack([logit_residual(l_cur, l_ref, self._active_dev),
+                            logit_residual(l_down, l_ref, self._active_dev)])
+        err_cur, err_down = errs.cpu().tolist()
+        return err_cur, err_down
+
     def _adapt_tick(self) -> None:
         """One probe + controller observation; applies the shift when
         adaptation is enabled (monitor-only engines record but hold)."""
         table = self.mode_table
         ladder = int(table.max_mode) - int(table.min_mode)
-        tokens, active = self._device_inputs()
+        self._device_inputs()
         err_cur, err_down = self._probe_fn(
-            self.params, tokens, self.state, active,
             table.scalars(),
             table.scalars_shifted(ladder),  # clamps every site to max: ref
             table.scalars_shifted(-1),
         )
-        err_cur, err_down = float(err_cur), float(err_down)  # syncs the probe
+        err_cur, err_down = float(err_cur), float(err_down)
         self.metrics.on_probe(err_cur)
         step_ms = self._last_step_ms
         if step_ms is not None:
@@ -639,8 +722,8 @@ class ServeEngine:
                                  device=self.device)
         logits, solo = self.model_prefill.decode_step(
             self.params, prompt, self._solo0)
-        self.state = self.layout.scatter_row(
-            self.state, solo, slot, prompt=ticket.prompt)
+        self._set_state(self.layout.scatter_row(
+            self.state, solo, slot, prompt=ticket.prompt))
         self._row_len[slot] = len(ticket.prompt)
         first = int(torch.argmax(logits[0, -1]))  # syncs the prefill
         if self.tracer.enabled:
@@ -664,7 +747,7 @@ class ServeEngine:
                                  cause="budget")
                 self.tracer.inc("completed")
             self._active[slot] = False
-            self.state = self.layout.free_row(self.state, slot)
+            self._set_state(self.layout.free_row(self.state, slot))
         else:
             self.scheduler.start_decode(ticket.rid)
             self._active[slot] = True
@@ -720,6 +803,15 @@ class ServeEngine:
         from repro_torch.kernels import build
 
         return build.BUILD_COUNT
+
+    @property
+    def graph_capture_count(self) -> int:
+        """CUDA graphs this engine has captured (repro_torch.serve.graphs):
+        one per compiled step it has run on the card, 0 on the CPU and
+        under ``graphs.eager()``.  Mode-table shifts and draft-shift changes
+        rewrite the steps' device views and capture nothing."""
+        steps = (self._step_graph, self._round_graph, self._probe_graph)
+        return sum(g.captures for g in steps if g is not None)
 
     @property
     def decode_compile_count(self) -> int:

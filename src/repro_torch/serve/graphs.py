@@ -1,0 +1,113 @@
+"""Compiled serving steps: each a CUDA graph captured once and replayed.
+
+The port's counterpart of the reference's ``jax.jit`` steps
+(``src/repro/serve/engine.py``: the masked step at ``:264``, the modal step
+and the probe at ``:327-328``, the speculative round at ``:375``).  Eagerly,
+one decode step of ``qwen1.5-0.5b`` is about 2,000 separate PyTorch calls
+and kernel launches, and the host, not the card, sets its pace; a replay
+hands the whole step to the card in one call.
+
+A :class:`CompiledStep` wraps a step function of no arguments that reads
+and writes only buffers which outlive it: the engine's static inputs
+(tokens, active rows, the device views of its mode tables) and its static
+decode state.  The function must not read a host value back or build a
+tensor from host data.
+
+* On a CUDA device the first call warms the step up on a side stream
+  (building the kernel library, filling the plan and SM-count caches,
+  initialising cuBLAS), puts back the buffers the warm-up wrote, captures
+  the function into one ``torch.cuda.CUDAGraph``, and replays it; every
+  later call is one ``replay()``.  A capture or a replay that fails raises:
+  there is no fall back to eager.
+* On the CPU, and on the card inside :func:`eager` (the counterpart of
+  ``jax.disable_jit``), the same function runs eagerly on the same
+  buffers.
+
+``kernels.build.LAUNCHES`` is counted by the kernels' Python wrappers, which
+a replay does not run: the launches a capture recorded are added per
+replay instead, so launch counts stay true under replay.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.kernels import build
+
+#: depth of open ``eager()`` contexts (the engine steps from one thread)
+_EAGER = [0]
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every compiled step eagerly, on the card too, while the context
+    is open — for comparing a captured run with an eager one.  Graphs
+    already captured are kept and replayed again after the context."""
+    _EAGER[0] += 1
+    try:
+        yield
+    finally:
+        _EAGER[0] -= 1
+
+
+class CompiledStep:
+    """One compiled step: ``fn`` captured once as a CUDA graph on ``device``
+    and replayed on every call (see the module docstring).
+
+    ``mutates``: the persistent tensors ``fn`` writes (the static decode
+    state); the warm-up's writes to them are undone before the capture.
+    """
+
+    def __init__(self, fn: Callable[[], object], device, *, name: str,
+                 mutates: Sequence[torch.Tensor] = ()):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.mutates = tuple(mutates)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs = None
+        #: kernel launches one replay makes, recorded at capture
+        self.launches: dict[str, int] = {}
+        self.captures = 0
+        self.replays = 0
+        #: host seconds of the last warm-up and capture together
+        self.capture_s: float | None = None
+
+    def __call__(self):
+        if self.device.type != "cuda" or _EAGER[0]:
+            return self.fn()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for name, n in self.launches.items():
+            build.LAUNCHES[name] += n
+        self.replays += 1
+        return self.outputs
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        saved = [t.clone() for t in self.mutates]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.fn()  # real launches: LAUNCHES counts them
+        current.wait_stream(side)
+        for t, s in zip(self.mutates, saved):
+            t.copy_(s)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        before = build.launch_counts()
+        with torch.cuda.graph(graph):
+            outputs = self.fn()
+        after = build.launch_counts()
+        # a capture enqueues nothing: what the wrappers counted meanwhile is
+        # what each replay will launch
+        self.launches = {name: after[name] - before[name] for name in after}
+        build.LAUNCHES.update(before)
+        self.graph, self.outputs = graph, outputs
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0

@@ -3,9 +3,9 @@
 One round over the serve engine's slot array (B = slots):
 
   1. **draft** — ``k`` single-token substeps of the same decode step under
-     the *draft* mode table (``bind_modes``: the modes are host ints that
-     the mode-map kernel reads as data, so changing the draft depth builds
-     nothing).  The draft runs on a scratch state: the decode step never
+     the *draft* mode table (``bind_modes``: host ints, or the device
+     scalars the engine's captured round reads as data, so changing the
+     draft depth builds nothing).  The draft runs on a scratch state: the decode step never
      modifies the state it is given (every cache write is out of place), so
      its low-precision KV writes are never kept.
   2. **verify** — ``k + 1`` substeps of the *exact baseline step* (static
@@ -32,8 +32,9 @@ One round over the serve engine's slot array (B = slots):
 
 Where the reference scans the substeps inside one compiled function, the
 round here is a Python loop of ``k`` draft and ``k + 1`` verify substeps;
-drafts, acceptance and the rollback stay on the device, and the engine
-reads the round's results with ONE host sync.  The paged twins of the
+drafts, acceptance and the rollback stay on the device, so the engine
+captures the whole round as one CUDA graph (repro_torch.serve.graphs) and
+reads its results with ONE host sync.  The paged twins of the
 rollback wait for the paged cache (ROADMAP Queue A item 8).
 """
 from __future__ import annotations

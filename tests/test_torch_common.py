@@ -22,6 +22,14 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models.lm import DecodeState
 
+#: One PyTorch intra-op thread per test process.  Tier-1 runs six pytest
+#: workers on eight cores; with PyTorch's default pool (a thread per core)
+#: in each, the many small operations of the smoke-size port tests spend
+#: their time waiting for descheduled pool threads (measured: a test of
+#: 0.3 s alone took 300 s under six workers).  Workers import this module
+#: while collecting, so the setting holds in every worker.
+torch.set_num_threads(1)
+
 ARCH = "qwen1.5-0.5b"
 FACTOR = 4.0
 DECODE_STEPS = 8
@@ -97,6 +105,7 @@ def state_from_jax(jstate) -> DecodeState:
 #: two frameworks computed an ulp apart rounds to different cache codes
 CACHE_QUANTUM = {"bfloat16": 2.0**-8, "int8": 1.0 / 127}
 CACHE_FLIP_SHARE = 0.25
-#: the same for a step that starts from the reference's cache: only the row
-#: the step itself appends (and reads back) can round differently
-CACHE_FLIP_SHARE_ONE_ROW = 2.0**-10
+#: most codes of one appended cache row that may round to a neighbouring
+#: code when the two frameworks' values differ by their f32 arithmetic alone
+#: (see ``test_prefill_and_decode_logits_vs_reference``)
+APPENDED_FLIP_LIMIT_SHARE = 2.0**-6
