@@ -13,8 +13,10 @@ beside their bound, then
 serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
-table, and serves self-speculatively beside a plain arm, checking what comes
-out.  The engine runs its decode step, probe and speculative round as CUDA
+table, serves self-speculatively beside a plain arm, and serves from the
+paged KV cache (prefix sharing, page-pressure parking, precision-tiered
+pages through the quantize kernel) beside the dense cache, checking what
+comes out.  The engine runs its decode step, probe and speculative round as CUDA
 graphs (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt`` and
 ``serve_spec`` also serve eagerly (``graphs.eager()``) and require the same
 tokens, and ``step_breakdown`` times a decode step both ways.  Every phase
@@ -24,7 +26,8 @@ prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
-``tune`` and ``serve_spec`` phases always run at full depth).
+``tune``, ``serve_spec`` and ``serve_paged`` phases always run at full
+depth).
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ import torch
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
-from repro_torch.adapt import SLO, bind_modes  # noqa: E402
+from repro_torch.adapt import SLO, PageTierPolicy, bind_modes  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
@@ -79,12 +82,14 @@ from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: 
 from repro_torch.plan import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdaptConfig,
+    CacheConfig,
     Request,
     ServeConfig,
     ServeEngine,
     ragged_requests,
 )
 from repro_torch.serve.graphs import eager  # noqa: E402
+from repro_torch.serve.paged import batch_leaves, tier_node  # noqa: E402
 from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.tune import TuneTable, tune  # noqa: E402
 
@@ -115,8 +120,11 @@ DD_SPLIT_TOL = 2.0**-32
 #: shape, and the serving shapes at M32 (4 limbs) and M48 (6 limbs)
 DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + tuple(
     (m, k, n, limbs) for limbs in (4, 6) for m in MAIN_M for (k, n) in MAIN_KN)
+#: one K or V pool of ``serve_paged``'s 512-token, 8-slot cache: 256 pages
+#: of 16 tokens + the scratch page, 16 KV heads of 64
+PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
-          "serve_planned", "tune", "serve_spec")
+          "serve_planned", "tune", "serve_spec", "serve_paged")
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -301,13 +309,15 @@ def check_kernels(gen) -> dict:
         worst_abs[name] = max(worst_abs[name], abs_err)
         check(err <= MATMUL_TOL, f"{name} {what}: {err:.3e} > {MATMUL_TOL}")
 
-    # quantize: bit-exact, three roundings x keep {7, 15}, with specials
-    for shape in ((4, 1024), (48, 2816), (1024, 2816), (17, 33)):
+    # quantize: bit-exact, three roundings x keep {3, 5, 7, 15}, with
+    # specials; (257, 16, 16, 64) is the f32 upcast of one pool of the paged
+    # phase, whose tier passes keep 5 and 3 bits
+    for shape in ((4, 1024), (48, 2816), (1024, 2816), (17, 33), PAGED_POOL_SHAPE):
         x = _rand(gen, *shape)
         x.view(-1)[:6] = torch.tensor(
             [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1e-41], device="cuda")
         for rounding in ("grte", "trunc", "rne"):
-            for keep in (7, 15):
+            for keep in (3, 5, 7, 15):
                 got = quantize_mantissa_op(x, keep, rounding)
                 want = quantize_mantissa_plain(x, keep, rounding)
                 torch.cuda.synchronize()
@@ -1170,6 +1180,387 @@ def phase_serve_spec(params_cache):
     return counts
 
 
+def prefix_traffic(vocab: int, seed: int, n: int = 16) -> list[Request]:
+    """``n`` requests whose prompts share a 32-token prefix (two pages of 16)
+    and end in 8-24 tokens of their own, each asking for 16-32 new tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 32)
+    return [Request(np.concatenate([prefix, rng.integers(0, vocab, int(rng.integers(8, 25)))])
+                    .astype(np.int32), int(rng.integers(16, 33)), rid=i) for i in range(n)]
+
+
+def pool_tensors(state) -> list[torch.Tensor]:
+    return [getattr(n, f) for layers in state.caches.values() for n in layers
+            for f in ("k_pool", "v_pool", "k_scale", "v_scale")
+            if getattr(n, f, None) is not None]
+
+
+def time_tier_passes(eng) -> tuple[list[dict], list[dict]]:
+    """Wrap the engine's tier pass: each call runs under ``torch.profiler``
+    (kernel time, launches) between CUDA events (its device span, which the
+    pass's closing sync bounds) with the peak device memory it adds.  For
+    the first pass at each (keep, next keep) that finds a cold page, it
+    also keeps what that pass read and wrote on the group's first layer
+    (both pools before and after, the masks and the keeps) for
+    :func:`check_tier_passes`.  Returns (timing records, kept passes),
+    filled as the engine runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    records, kept = [], []
+    layout = eng.layout
+    tick = layout.tier_tick
+
+    def timed(state, lengths, step):
+        tc = layout.tier_ctrl
+        keeps = (tc.target_keep, tc.next_keep)
+        first = None
+        if lengths and keeps not in [r["keeps"] for r in kept]:
+            demote, shadow = layout.tier_masks(lengths)
+            if shadow[0].any():
+                node = state.caches[layout.groups[0].key][0]
+                first = {"keeps": keeps, "demote": demote[0], "shadow": shadow[0],
+                         "node": node, "before": (node.k_pool.clone(), node.v_pool.clone())}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            out = tick(state, lengths, step)
+            end.record()
+            end.synchronize()
+        wall = time.perf_counter() - t0
+        if out[1] is not None:
+            events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
+            records.append({
+                "step": step, "demoted": out[1]["demoted"], "err": out[1]["err"],
+                "span_ms": start.elapsed_time(end), "wall_ms": wall * 1e3,
+                "kernel_ms": sum(e.device_time_total for e in events) / 1e3,
+                "kernels": sum(e.count for e in events),
+                "quantize_kernel_ms": sum(e.device_time_total for e in events
+                                          if "quantize" in e.key) / 1e3,
+                "peak_extra_mb": (torch.cuda.max_memory_allocated() - base) / 1e6})
+        if first is not None:
+            first["after"] = (first["node"].k_pool.clone(), first["node"].v_pool.clone())
+            kept.append(first)
+        return out
+
+    layout.tier_tick = timed
+    return records, kept
+
+
+def check_tier_passes(kept: list[dict], rounding: str) -> list[dict]:
+    """Redo each kept tier pass on copies of its layer's pools (the pool
+    shape, data, masks and keeps the serving path gave it), once through the
+    quantize kernel and once through its plain version.  The kernel's copy
+    must equal what the pass left in the engine's pools (changed where it
+    demoted, untouched where it only measured), and the plain version's
+    copy must equal it bit for bit with the same two residuals."""
+    out = []
+    for r in kept:
+        dev = r["before"][0].device
+        demote = torch.from_numpy(r["demote"]).to(dev)
+        shadow = torch.from_numpy(r["shadow"]).to(dev)
+        runs = {}
+        for label, quantize in (("kernel", quantize_mantissa_op), ("plain", quantize_mantissa_plain)):
+            node = dataclasses.replace(r["node"], k_pool=r["before"][0].clone(),
+                                       v_pool=r["before"][1].clone())
+            errs = tier_node([node], demote, shadow, *r["keeps"], rounding, quantize=quantize)
+            runs[label] = (node, [float(e) for e in errs])
+
+        def words(x):
+            return x.view(torch.int16)
+
+        kern, plain = runs["kernel"][0], runs["plain"][0]
+        for name, after in zip(("k_pool", "v_pool"), r["after"]):
+            check(torch.equal(words(getattr(kern, name)), words(after)),
+                  f"tier pass keeps={r['keeps']}: the kernel's {name} differs from the engine's")
+            check(torch.equal(words(getattr(plain, name)), words(getattr(kern, name))),
+                  f"tier pass keeps={r['keeps']}: {name} through the plain version differs")
+        check(runs["plain"][1] == runs["kernel"][1],
+              f"tier pass keeps={r['keeps']}: residuals {runs['kernel'][1]} (kernel) != "
+              f"{runs['plain'][1]} (plain)")
+        changed = sum(int((words(a) != words(b)).sum()) for a, b in zip(r["before"], r["after"]))
+        check((changed > 0) == bool(r["keeps"][0] is not None and r["demote"].any()),
+              f"tier pass keeps={r['keeps']} changed {changed} words of the layer's pools")
+        out.append({"keep": r["keeps"][0], "next_keep": r["keeps"][1],
+                    "pool_shape": list(r["before"][0].shape), "rounding": rounding,
+                    "pages_demoted": int(r["demote"].sum()), "pages_measured": int(r["shadow"].sum()),
+                    "words_changed": changed, "err": runs["kernel"][1][0],
+                    "err_down": runs["kernel"][1][1], "plain_bit_equal": True})
+    return out
+
+
+class StepTimer:
+    """Stands in for an engine's compiled decode step while it serves: CUDA
+    events around every replay (the first call, which captures, is not
+    timed), with the rows active and the distinct pool pages the tables map
+    at that step; and ``torch.profiler`` around the first ``profile_steps``
+    replays with every row active.  Every other attribute is the step's."""
+
+    def __init__(self, eng, profile_steps: int = 3):
+        self.eng = eng
+        self.step = eng._step_graph
+        self.records: list[tuple] = []
+        self.profile_steps = profile_steps
+        self.prof = None
+        self.profiled = 0
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self):
+        if self.step.graph is None:
+            return self.step()
+        from torch.profiler import ProfilerActivity, profile
+
+        eng = self.eng
+        active = int(eng._active.sum())
+        groups = getattr(eng.layout, "groups", None)
+        pages = (None if groups is None else
+                 sum(len(np.unique(g.pool.tbl[g.pool.tbl >= 0])) for g in groups))
+        if active == eng.slots and self.prof is None:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.step()
+        end.record()
+        self.records.append((start, end, active, pages))
+        if self.prof is not None and self.profiled < self.profile_steps:
+            self.profiled += 1
+            if self.profiled == self.profile_steps:
+                end.synchronize()
+                self.prof.stop()
+        return out
+
+    def summary(self) -> dict:
+        """Replay times (ms, CUDA events) over the steps with every row
+        active, and the profiled steps' device time and top kernels (the
+        copies between host and device that the engine makes between steps
+        left out; the step's own device-to-device copies kept)."""
+        torch.cuda.synchronize()
+        if self.prof is not None and self.profiled < self.profile_steps:
+            self.prof.stop()  # the run ended first: no profile
+        full = [(s.elapsed_time(e), pages) for s, e, active, pages in self.records
+                if active == self.eng.slots]
+        ms = [t for t, _ in full]
+        out = {"steps_timed": len(self.records), "steps_all_rows_active": len(full),
+               "replay_ms_median": statistics.median(ms) if ms else None,
+               "replay_ms_min": min(ms, default=None), "replay_ms_max": max(ms, default=None),
+               "replay_ms_median_all_steps": statistics.median(
+                   s.elapsed_time(e) for s, e, _, _ in self.records) if self.records else None,
+               "distinct_pages_mapped_median": (statistics.median(p for _, p in full)
+                                                if full and full[0][1] is not None else None)}
+        if self.profiled == self.profile_steps:
+            events = [e for e in self.prof.key_averages()
+                      if getattr(e, "device_time_total", 0) > 0
+                      and not e.key.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
+            top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+            out["kernel_ms_per_step"] = sum(e.device_time_total for e in events) / self.profiled / 1e3
+            out["top_device_kernels"] = [
+                {"name": e.key[:60], "calls_per_step": e.count / self.profiled,
+                 "device_ms_per_step": e.device_time_total / self.profiled / 1e3} for e in top]
+        return out
+
+
+def paged_run(model, params, cfg: ServeConfig, reqs: list[Request], eager_run: bool = False,
+              tier_records: bool = False, time_steps: bool = False):
+    """Serve ``reqs`` step by step, captured or eager, with the launch counts
+    zeroed just before and read just after.  Checks that every request
+    completed within its budget, that the capture count after every decode
+    step is 1 (0 eagerly) — page-table pushes, copy-on-write copies, parking
+    and tier passes capture nothing — and that no tensor of the state moved
+    (pools and tables are written in place, never rebound).
+    ``time_steps``: the decode step runs under a :class:`StepTimer`.
+    Returns (engine, outputs, counts, s, (tier timing records, kept tier
+    passes) or None)."""
+    eng = ServeEngine(model, params, config=cfg)
+    time_prefills(eng)
+    tiers = time_tier_passes(eng) if tier_records else None
+    if time_steps:
+        eng._step_graph = StepTimer(eng)
+    ptrs = [x.data_ptr() for x in state_leaves(eng.state)]
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    captures = set()
+    t0 = time.perf_counter()
+    with eager() if eager_run else contextlib.nullcontext():
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        while eng.scheduler.has_work():
+            eng.step()
+            if eng.metrics.decode_steps:
+                captures.add(eng.graph_capture_count)
+        outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = build.launch_counts()
+    for r in reqs:
+        check(len(outs.get(r.rid, ())) == eng.scheduler.tickets[r.rid].budget,
+              f"request {r.rid} incomplete")
+        check(all(0 <= t < model.cfg.vocab for t in outs[r.rid]), f"request {r.rid}: token range")
+    check(captures == {0 if eager_run else 1},
+          f"capture counts {sorted(captures)} across the run (eager={eager_run})")
+    check([x.data_ptr() for x in state_leaves(eng.state)] == ptrs,
+          "a tensor of the paged state was rebound")
+    return eng, outs, counts, wall, tiers
+
+
+def pages_summary(eng) -> dict:
+    p = eng.metrics.summary()["pages"]
+    return {"pages_total": p["pages_total"],
+            "pages_peak": round(p["occupancy_peak"] * p["pages_total"]),
+            "pages_at_end": p["pages_used"], "shared_hits": p["shared_hits"],
+            "cow_copies": p["cow_copies"], "index_evictions": p["index_evictions"],
+            "page_evictions": p["page_evictions"], "dense_equiv_slots": p["dense_equiv_slots"],
+            "tier_ticks": p["tier_ticks"], "tier_demoted": p["tier_demoted"],
+            "tier_err_max": p["tier_err_max"], "tier_mix": p["tier_mix"]}
+
+
+def phase_serve_paged(params_cache):
+    """The paged KV cache at full width and depth (M16, ``impl="pallas"``,
+    bf16 KV, captured steps): (a) 16 requests over a shared prefix, paged
+    against dense (tokens equal request by request, captured equal to
+    eager, prefix hits), with pages in use, pool bytes and every decode
+    step's replay time in the run itself, paged against dense; (b) the same
+    traffic on a pool cut until page pressure parks rows (tokens equal the
+    dense run); (c) open-loop precision tiers, whose passes launch the
+    quantize kernel (device span, kernel time and peak memory of each
+    pass), one pass at each keep redone through the kernel's plain version,
+    and tokens equal to an eager tiered run's;
+    (d) speculative rounds whose verify appends wrap into the shared prompt
+    pages (copy-on-write forks; tokens equal the dense speculative run);
+    (e) adaptive serving, whose captured probe reads the pools without
+    writing them (tokens and mode timeline equal the dense run's)."""
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    model = full_width_model(policy)
+    params = params_cache(model)
+    build.library()  # run alone, the phase's first prefill would pay the build
+    reqs = prefix_traffic(model.cfg.vocab, seed=5)
+    base = dict(batch_slots=8, max_len=512)
+    paged = CacheConfig(layout="paged", page_size=16)
+    runs = {}
+    for label, cfg, eager_run in (
+            ("paged", ServeConfig(cache=paged, **base), False),
+            ("dense", ServeConfig(**base), False),
+            ("paged_eager", ServeConfig(cache=paged, **base), True)):
+        runs[label] = paged_run(model, params, cfg, reqs, eager_run=eager_run,
+                                time_steps=not eager_run)
+    eng, outs, counts, wall, _ = runs["paged"]
+    check_same_tokens(outs, runs["dense"][1], "serve_paged (a) paged against dense")
+    check_same_tokens(runs["paged_eager"][1], outs, "serve_paged (a) eager against captured")
+    pages = pages_summary(eng)
+    check(pages["shared_hits"] > 0, "no prefix hit")
+    pool_bytes = sum(x.numel() * x.element_size() for x in pool_tensors(eng.state))
+    dense_eng = runs["dense"][0]
+    cache_bytes = sum(x.numel() * x.element_size() for layers in dense_eng.state.caches.values()
+                      for n in layers for x in (n.k, n.v))
+    # what a step's merge and copy-back move: the leaves with a batch axis
+    copy_back = {label: sum(x.numel() * x.element_size()
+                            for x in batch_leaves(runs[label][0]._axes, runs[label][0].state))
+                 for label in ("paged", "dense")}
+    # every decode step's replay in the runs themselves, tables live
+    live = {label: runs[label][0]._step_graph.summary() for label in ("paged", "dense")}
+    for label, t in live.items():
+        check(t["steps_all_rows_active"] > 0 and "kernel_ms_per_step" in t,
+              f"serve_paged (a) {label}: no step ran with every row active")
+    # live tables: beyond the two shared prefix pages, every row maps its own
+    check(live["paged"]["distinct_pages_mapped_median"] >= 8 + 2,
+          f"serve_paged (a): the timed steps map {live['paged']['distinct_pages_mapped_median']} "
+          "distinct pages")
+
+    # (b) page pressure: max_len 96 lets the pool fall below 32 pages (one
+    # row of cap 512); 18 pages of 16 hold about 3 of these rows
+    base96 = dict(batch_slots=8, max_len=96)
+    tight = CacheConfig(layout="paged", page_size=16, pool_pages=18)
+    p_eng, p_outs, p_counts, p_wall, _ = paged_run(model, params, ServeConfig(cache=tight, **base96), reqs)
+    d96 = paged_run(model, params, ServeConfig(**base96), reqs)
+    check_same_tokens(p_outs, d96[1], "serve_paged (b) under page pressure against dense")
+    pressure = pages_summary(p_eng)
+    check(pressure["page_evictions"] >= 1, "no row was parked under page pressure")
+
+    # (c) precision-tiered pages, open loop: cold pages demoted to 5, then 3
+    # kept mantissa bits by the quantize kernel between replays
+    tiers = CacheConfig(layout="paged", page_size=16, tier_policy=PageTierPolicy(
+        levels=(5, 3), cold_after=16, every=4))
+    t_eng, t_outs, t_counts, t_wall, (tier_passes, kept) = paged_run(
+        model, params, ServeConfig(cache=tiers, **base), reqs, tier_records=True)
+    t_eager = paged_run(model, params, ServeConfig(cache=tiers, **base), reqs, eager_run=True)
+    check_same_tokens(t_eager[1], t_outs, "serve_paged (c) tiered eager against captured")
+    tiered = pages_summary(t_eng)
+    check(tiered["tier_demoted"] >= 1, "no page was demoted")
+    check(pages_summary(t_eager[0])["tier_demoted"] == tiered["tier_demoted"],
+          "serve_paged (c): the eager run demoted other pages")
+    check(t_counts["quantize_mantissa"] > 0, "the tier passes launched the quantize kernel no time")
+    tier_checks = check_tier_passes(kept, tiers.tier_policy.rounding)
+    # open loop walks to the deepest tier before the first page turns cold,
+    # so every pass runs at keep 3; keep 5 is held at this pool's shape in
+    # check_kernels
+    check(any(c["pages_demoted"] and c["keep"] for c in tier_checks),
+          f"no demoting tier pass held against the plain version: "
+          f"{[(c['keep'], c['next_keep']) for c in tier_checks]}")
+
+    # (d) speculation: at max_len 64 budgets run rows to the capacity, where
+    # a round's k+1 verify appends wrap onto the shared prompt pages
+    spec = dict(batch_slots=8, max_len=64, spec=SpecConfig(k=3, draft_shift=1))
+    s_eng, s_outs, s_counts, s_wall, _ = paged_run(model, params, ServeConfig(cache=paged, **spec), reqs)
+    s_dense = paged_run(model, params, ServeConfig(**spec), reqs)
+    check_same_tokens(s_outs, s_dense[1], "serve_paged (d) speculative paged against dense")
+    spec_pages = pages_summary(s_eng)
+    check(spec_pages["cow_copies"] > 0, "serve_paged (d): no copy-on-write fork ran")
+    acceptance = s_eng.metrics.summary()["acceptance_rate"]
+    check(acceptance is not None and acceptance > 0, f"serve_paged (d): acceptance {acceptance}")
+
+    # (e) adaptation: the captured probe over the pools, one forced shift
+    adapt = dict(batch_slots=8, max_len=64,
+                 adapt=AdaptConfig(slo=SLO(max_err=0.05), adapt_every=2))
+    a_eng, a_outs, a_counts, a_wall, a_captures = adapt_run(
+        model, params, ServeConfig(cache=paged, **adapt), reqs, eager_run=False)
+    a_dense = adapt_run(model, params, ServeConfig(**adapt), reqs, eager_run=False)
+    check_same_tokens(a_outs, a_dense[1], "serve_paged (e) adaptive paged against dense")
+    check(a_eng.metrics.mode_timeline == a_dense[0].metrics.mode_timeline,
+          "serve_paged (e): the paged and dense mode timelines differ")
+    check(len(a_eng.controller.history) > 0, "serve_paged (e): no probe ran")
+    check(a_captures == {2} and a_eng.graph_capture_count == 2,
+          f"serve_paged (e): capture counts {sorted(a_captures)} (want only 2)")
+    check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 with paged serving")
+
+    # the kernels line counts the paged runs' launches (a-e; captured)
+    total = {k: counts[k] + p_counts[k] + t_counts[k] + s_counts[k] + a_counts[k] for k in counts}
+    tier_pool_bytes = sum(x.numel() * x.element_size() for x in pool_tensors(t_eng.state))
+    emit("serve_paged", arch=ARCH, layers=model.cfg.n_layers, policy=policy.describe(),
+         slots=8, max_len=512, page_size=16, requests=len(reqs),
+         tokens_equal_dense=True, captured_tokens_equal_eager=True,
+         build_count=build.BUILD_COUNT, graph_capture_count=eng.graph_capture_count,
+         pool_bytes=pool_bytes, dense_cache_bytes=cache_bytes, pages=pages,
+         copy_back_bytes_per_step=copy_back, replay_live=live,
+         replay_ratio=live["paged"]["replay_ms_median"] / live["dense"]["replay_ms_median"],
+         launches_paged=counts, paged=serve_summary(eng, outs, wall),
+         dense=serve_summary(dense_eng, runs["dense"][1], runs["dense"][3]),
+         paged_eager=serve_summary(runs["paged_eager"][0], runs["paged_eager"][1],
+                                   runs["paged_eager"][3]),
+         pressure={"max_len": 96, "pool_pages": 18, "pages": pressure,
+                   "tokens_equal_dense": True, "launches": p_counts,
+                   **serve_summary(p_eng, p_outs, p_wall)},
+         tiers={"levels": [5, 3], "cold_after": 16, "every": 4, "pages": tiered,
+                "pool_bytes": tier_pool_bytes, "launches": t_counts,
+                "passes": tier_passes, "held_against_plain": tier_checks,
+                "captured_tokens_equal_eager": True,
+                **serve_summary(t_eng, t_outs, t_wall)},
+         spec={"max_len": 64, "k": 3, "draft_shift": 1, "pages": spec_pages,
+               "acceptance": acceptance, "tokens_equal_dense": True, "launches": s_counts,
+               **serve_summary(s_eng, s_outs, s_wall)},
+         adapt={"max_len": 64, "probes": len(a_eng.controller.history),
+                "mode_switches": a_eng.mode_table.switches,
+                "mode_timeline": [[int(st), lab] for st, lab in a_eng.metrics.mode_timeline],
+                "pages": pages_summary(a_eng), "tokens_equal_dense": True,
+                "timeline_equal_dense": True, "launches": a_counts,
+                **serve_summary(a_eng, a_outs, a_wall)})
+    return total
+
+
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
@@ -1272,10 +1663,11 @@ def main() -> int:
         phase_serve_planned(params_cache, args.layers)
     if "tune" in phases:
         phase_tune(params_cache)
-    if "serve_spec" in phases:
-        for kname, c in phase_serve_spec(params_cache).items():
-            if kname in main_counts:
-                main_counts[kname] += c
+    for name, fn in (("serve_spec", phase_serve_spec), ("serve_paged", phase_serve_paged)):
+        if name in phases:
+            for kname, c in fn(params_cache).items():
+                if kname in main_counts:
+                    main_counts[kname] += c
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

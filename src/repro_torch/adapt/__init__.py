@@ -11,12 +11,16 @@ run time" — as a feedback loop over the RMPM engine:
     probe.py           online error probes (shadow-forward logit residual,
                        sampled-row matmul residual)
     controller.py      SLO + dual-threshold hysteresis controller
+    pages.py           precision tiers of paged KV memory: the keep-bits
+                       ladder policy and its controller
 
 ``ServeEngine(config=ServeConfig(adapt=AdaptConfig(slo=...)))`` closes the
-loop.  The page-tier policy, the synthetic workload and the training
-schedule of the reference are not ported yet.
+loop; ``CacheConfig(tier_policy=PageTierPolicy(...))`` tiers cold KV pages.
+The synthetic workload and the training schedule of the reference are not
+ported yet.
 """
 from repro_torch.adapt.controller import SLO, HysteresisController  # noqa: F401
+from repro_torch.adapt.pages import HOT, PageTierController, PageTierPolicy  # noqa: F401
 from repro_torch.adapt.probe import (  # noqa: F401
     logit_residual,
     sampled_matmul_residual,

@@ -19,12 +19,15 @@ the SLO between steps, with nothing rebuilt.  Pass ``--speculate`` (with
 ``--draft-k``, ``--draft-shift``) for self-speculative decoding
 (repro_torch.spec): the cheap mode of the same step drafts, the exact step
 verifies — identical outputs.  ``--tune-table`` plans ``--accuracy`` from a
-measured tuning table (``python -m repro_torch.tune``).
+measured tuning table (``python -m repro_torch.tune``).  ``--paged`` serves
+from a page-table KV cache (``--page-size``, ``--pool-pages``, prefix
+sharing unless ``--no-prefix-sharing``); ``--tier-levels 5,3`` adds
+precision-tiered pages (``--tier-cold-after``, ``--tier-every``,
+``--tier-budget``), demoted by the quantize_mantissa kernel.
 
-Flags of features that are not ported yet (``--paged``, ``--tier-levels``,
-``--trace-out``, ``--multi-tenant`` together with ``--adapt``) are accepted
-by the parser and refused with a NotImplementedError naming the ROADMAP
-item.
+Flags of features that are not ported yet (``--trace-out``,
+``--multi-tenant`` together with ``--adapt``) are accepted by the parser and
+refused with a NotImplementedError naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -121,12 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("priority", "fifo"),
                     help="scheduler for --multi-tenant (default: priority)")
     ap.add_argument("--paged", action="store_true",
-                    help="page-table KV cache (not ported yet)")
+                    help="page-table KV cache with prefix sharing "
+                         "(repro_torch.serve.paged)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pool-pages", type=int, default=0)
     ap.add_argument("--no-prefix-sharing", action="store_true")
     ap.add_argument("--tier-levels", default="",
-                    help="precision-tiered pages (not ported yet)")
+                    help="precision-tiered pages (with --paged): keep-bits "
+                         "ladder, shallowest first, e.g. 5,3")
     ap.add_argument("--tier-cold-after", type=int, default=32)
     ap.add_argument("--tier-every", type=int, default=8)
     ap.add_argument("--tier-budget", type=float, default=0.0)

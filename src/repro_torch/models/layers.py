@@ -2,10 +2,12 @@
 engine (C1): the paper's multi-precision multiplier is the only multiplier
 in the system.
 
-PyTorch idiom: plain functions on tensors and dicts of tensors.  All cache
-updates are OUT OF PLACE (clone + indexed write), so a state value is never
-mutated by a step: the masked step's "inactive rows keep their exact state"
-and the probe's "state discarded" both hold by construction.  Weights keep
+PyTorch idiom: plain functions on tensors and dicts of tensors.  Dense
+cache updates are OUT OF PLACE (clone + indexed write), so a dense state
+value is never mutated by a step: the masked step's "inactive rows keep
+their exact state" and the probe's "state discarded" both hold by
+construction.  The paged cache's pools are the one exception: appends write
+them in place (see the paged section below).  Weights keep
 the reference's ``(d_in, d_out)`` layout and are used as ``x @ w``.
 """
 from __future__ import annotations
@@ -271,17 +273,216 @@ def kv_cache_append_slots(cache: KVCache, k_new: Tensor, v_new: Tensor) -> KVCac
                    None, None, pos, total.to(torch.int32))
 
 
-def kv_append(cache: KVCache, k_new: Tensor, v_new: Tensor) -> KVCache:
-    """Layout dispatch for cache appends: dense per-slot nodes ((B,)
-    lengths) ring-append per row, shared-length nodes append at one scalar
-    offset.  (The paged branch of the reference is not ported yet.)"""
+# ---------------------------------------------------------------------------
+# Paged KV cache (fixed-size pages in a shared pool, per-row page tables —
+# the serving-side layout behind repro_torch.serve.paged.PagedLayout).
+# Virtual addressing keeps the dense ring semantics bit for bit: virtual
+# slot v of row b lives at pool[page_tbl[b, v // page], v % page], so the
+# view reproduces exactly the (B, cap, Hkv, hd) tensors the dense cache
+# would hold.
+#
+# Unlike every other state update of the port, appends write the POOLS IN
+# PLACE: a pool is shared by every row and sized for a deployment (GBs), so
+# an out-of-place append would copy it every step.  ``pos``/``length`` stay
+# out of place.  Isolation comes from the page table: a write lands on a
+# page the serving layout made private to its row, or on the scratch page.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Page-table KV cache node of one layer (always per-slot).
+
+    ``k_pool``/``v_pool`` are shared across rows: (P, page, Hkv, hd) with
+    page 0 reserved as a scratch page — unmapped table entries (-1) clamp
+    to it, so appends from inactive rows (whose tables the layout has
+    cleared) land in scratch instead of on live pages.  ``page_tbl`` is
+    (B, n_pages) int32 (-1 = unmapped); the layers of one cache group share
+    one table tensor.  ``pos``/``length`` keep the exact dense per-slot
+    semantics (pos (B, cap) global positions, -1 empty).
+    """
+
+    k_pool: Tensor  # (P, page, Hkv, hd) bf16 or int8
+    v_pool: Tensor
+    k_scale: Tensor | None  # (P, page, Hkv, 1) f32 when int8
+    v_scale: Tensor | None
+    page_tbl: Tensor  # (B, n_pages) int32, -1 = unmapped (-> scratch page 0)
+    pos: Tensor  # (B, cap) int32 global positions (-1 empty)
+    length: Tensor  # (B,) int32 total tokens ever appended per row
+
+
+#: the pool leaves of a paged node (shared by every row, written in place)
+POOL_FIELDS = ("k_pool", "v_pool", "k_scale", "v_scale")
+
+
+def paged_cache_init(batch: int, cap: int, n_kv: int, hd: int, dtype: str,
+                     n_pages: int, page_size: int, device="cpu",
+                     page_tbl: Tensor | None = None) -> PagedKVCache:
+    """An empty paged node: ``n_pages`` usable pages (+1 scratch) of
+    ``page_size`` tokens; ``cap`` is the per-row virtual capacity (the dense
+    cache's Smax — ring wrap happens in virtual space).  ``page_tbl``: a
+    table tensor to share (the other layers of the group), else a new one."""
+    per_row = -(-cap // page_size)
+    if n_pages < per_row:
+        raise ValueError(
+            f"pool of {n_pages} pages cannot hold one full row "
+            f"(cap={cap}, page_size={page_size} -> {per_row} pages/row)")
+    if page_tbl is None:
+        page_tbl = torch.full((batch, per_row), -1, dtype=torch.int32, device=device)
+    pos = torch.full((batch, cap), -1, dtype=torch.int32, device=device)
+    length = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+    def z(dt, width=hd):
+        return torch.zeros((n_pages + 1, page_size, n_kv, width), dtype=dt, device=device)
+
+    if dtype == "int8":
+        return PagedKVCache(z(torch.int8), z(torch.int8), z(torch.float32, 1),
+                            z(torch.float32, 1), page_tbl, pos, length)
+    return PagedKVCache(z(torch.bfloat16), z(torch.bfloat16), None, None,
+                        page_tbl, pos, length)
+
+
+def _paged_addr(cache: PagedKVCache, vi: Tensor) -> tuple[Tensor, Tensor]:
+    """Virtual indices (B, S) -> (pool page, in-page offset), clamping
+    unmapped entries to the scratch page."""
+    ps = cache.k_pool.shape[1]
+    pages = torch.take_along_dim(cache.page_tbl, (vi // ps).long(), dim=1)
+    return torch.clamp(pages, min=0).long(), (vi % ps).long()
+
+
+def _paged_encode(cache: PagedKVCache, k_new: Tensor, v_new: Tensor) -> dict:
+    """What an append stores, per pool leaf: the same cast or int8 row
+    quantization as the dense cache."""
+    if cache.k_scale is not None:
+        kq, ks = _quant_rows(k_new)
+        vq, vs = _quant_rows(v_new)
+        return {"k_pool": kq, "v_pool": vq, "k_scale": ks, "v_scale": vs}
+    return {"k_pool": k_new.to(cache.k_pool.dtype), "v_pool": v_new.to(cache.v_pool.dtype)}
+
+
+def _paged_slots(cache: PagedKVCache, s_new: int) -> Tensor:
+    """Virtual slots (B, s_new) of the next ``s_new`` appends per row."""
+    cap = cache.pos.shape[1]
+    ar = torch.arange(s_new, dtype=torch.int32, device=cache.pos.device)
+    return torch.remainder(cache.length, cap)[:, None] + ar[None, :]
+
+
+def _paged_advance(cache: PagedKVCache, vi: Tensor) -> PagedKVCache:
+    """The node after appending at virtual slots ``vi`` (B, S): new
+    ``pos``/``length`` (out of place), the same pools and table."""
+    b, s_new = vi.shape
+    ar = torch.arange(s_new, dtype=torch.int32, device=vi.device)
+    rows = torch.arange(b, device=vi.device)[:, None]
+    pos = _put(cache.pos, (rows, vi.long()), cache.length[:, None] + ar[None, :])
+    return dataclasses.replace(cache, pos=pos, length=(cache.length + s_new).to(torch.int32))
+
+
+def paged_append(cache: PagedKVCache, k_new: Tensor, v_new: Tensor) -> PagedKVCache:
+    """Per-row ring append through the page table: mirrors
+    ``kv_cache_append_slots`` exactly in virtual space (same cast, same int8
+    row quantization, same pos/length updates).  Writes the pools IN PLACE
+    (only the new rows); multi-token appends must not straddle the virtual
+    wrap point, as in the dense contract."""
+    vi = _paged_slots(cache, k_new.shape[1])
+    pages, off = _paged_addr(cache, vi)
+    for name, vals in _paged_encode(cache, k_new, v_new).items():
+        getattr(cache, name)[pages, off] = vals
+    return _paged_advance(cache, vi)
+
+
+def paged_view(cache: PagedKVCache) -> tuple[Tensor, Tensor, Tensor | None, Tensor | None]:
+    """Materialize the dense (B, cap, Hkv, hd) view attention reads: gather
+    pages by table, flatten, trim to the virtual capacity.  Unmapped entries
+    read the scratch page — garbage there is masked by ``pos == -1`` in
+    flash_attention, so the view equals the dense cache wherever positions
+    are valid."""
+    cap = cache.pos.shape[1]
+    b, npg = cache.page_tbl.shape
+    ps = cache.k_pool.shape[1]
+    tbl = torch.clamp(cache.page_tbl, min=0).long()
+
+    def view(pool):
+        if pool is None:
+            return None
+        return pool[tbl].reshape(b, npg * ps, *pool.shape[2:])[:, :cap]
+
+    return tuple(view(getattr(cache, name)) for name in POOL_FIELDS)
+
+
+def paged_append_readonly(cache: PagedKVCache, k_new: Tensor, v_new: Tensor):
+    """``paged_append`` followed by ``paged_view``, without writing the
+    pools: the new rows are placed into the gathered view instead (the
+    adaptation probe's step, which must leave every pool bit-identical).
+    Returns (the advanced node, the view)."""
+    vi = _paged_slots(cache, k_new.shape[1])
+    rows = torch.arange(vi.shape[0], device=vi.device)[:, None]
+    view = list(paged_view(cache))
+    for i, vals in enumerate(_paged_encode(cache, k_new, v_new).values()):
+        view[i][rows, vi.long()] = vals  # the gather's own memory, not a pool
+    return _paged_advance(cache, vi), tuple(view)
+
+
+def paged_scatter_rows(cache: PagedKVCache, k: Tensor, v: Tensor,
+                       k_scale: Tensor | None, v_scale: Tensor | None,
+                       pos: Tensor, length: Tensor) -> PagedKVCache:
+    """Write every row's full (B, cap, ...) virtual content back through the
+    page table, in place — the inverse of ``paged_view``.  Rows whose table
+    entries are unmapped write the scratch page; rows sharing a page write
+    identical bits.  Returns the node with ``pos``/``length`` replaced."""
+    cap = cache.pos.shape[1]
+    b = cache.page_tbl.shape[0]
+    vi = torch.arange(cap, dtype=torch.int32, device=pos.device).expand(b, cap)
+    pages, off = _paged_addr(cache, vi)
+    for name, vals in zip(POOL_FIELDS, (k, v, k_scale, v_scale)):
+        pool = getattr(cache, name)
+        if pool is not None:
+            pool[pages, off] = vals.to(pool.dtype)
+    return dataclasses.replace(cache, pos=pos, length=length)
+
+
+def paged_save_slots(cache: PagedKVCache, n: int) -> tuple:
+    """The pool content at each row's next ``n`` virtual slots, ring wrap
+    included (what ``n`` one-token appends will overwrite): (pages,
+    offsets, values per pool)."""
+    cap = cache.pos.shape[1]
+    ar = torch.arange(n, dtype=torch.int32, device=cache.pos.device)
+    pages, off = _paged_addr(cache, torch.remainder(cache.length[:, None] + ar, cap))
+    vals = [None if getattr(cache, f) is None else getattr(cache, f)[pages, off]
+            for f in POOL_FIELDS]
+    return pages, off, vals
+
+
+def paged_restore_slots(cache: PagedKVCache, saved: tuple,
+                        where: Tensor | None = None) -> None:
+    """Write saved slot content back in place: all of it, or only the
+    (B, n) entries where ``where`` holds (the others are rewritten with
+    their current content)."""
+    pages, off, vals = saved
+    for name, old in zip(POOL_FIELDS, vals):
+        pool = getattr(cache, name)
+        if pool is None:
+            continue
+        if where is not None:
+            m = where.reshape(where.shape + (1,) * (old.dim() - where.dim()))
+            old = torch.where(m, old, pool[pages, off])
+        pool[pages, off] = old
+
+
+def kv_append(cache: KVCache | PagedKVCache, k_new: Tensor, v_new: Tensor):
+    """Layout dispatch for cache appends: paged nodes write through their
+    page table, dense per-slot nodes ((B,) lengths) ring-append per row,
+    shared-length nodes append at one scalar offset."""
+    if isinstance(cache, PagedKVCache):
+        return paged_append(cache, k_new, v_new)
     if cache.length.dim() == 1:
         return kv_cache_append_slots(cache, k_new, v_new)
     return kv_cache_append(cache, k_new, v_new)
 
 
-def kv_view(cache: KVCache):
+def kv_view(cache: KVCache | PagedKVCache):
     """The (k, v, k_scale, v_scale) tensors attention reads for this node."""
+    if isinstance(cache, PagedKVCache):
+        return paged_view(cache)
     return cache.k, cache.v, cache.k_scale, cache.v_scale
 
 
@@ -397,10 +598,14 @@ def attention_apply(
     cfg,
     *,
     positions: Tensor | None = None,
-    cache: KVCache | None = None,
+    cache: KVCache | PagedKVCache | None = None,
     window: int = 0,
     causal: bool = True,
-) -> tuple[Tensor, KVCache | None]:
+    write_pools: bool = True,
+) -> tuple[Tensor, KVCache | PagedKVCache | None]:
+    """``write_pools=False``: a paged decode step reads its fresh K/V from
+    the gathered view and leaves the pools untouched (dense caches are
+    never written in place)."""
     policy = cfg.policy
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -414,7 +619,11 @@ def attention_apply(
 
     if cache is not None:
         q_offset = cache.length
-        cache = kv_append(cache, k, v)
+        if isinstance(cache, PagedKVCache) and not write_pools:
+            cache, view = paged_append_readonly(cache, k, v)
+        else:
+            cache = kv_append(cache, k, v)
+            view = None
         if s > 1:
             # prefill: attend over the fresh full-length K/V (the window
             # cache may be smaller than the prompt; it keeps only the tail)
@@ -425,7 +634,7 @@ def attention_apply(
                 q_offset=q_offset, kv_positions=fresh_pos, chunk=cfg.attn_chunk,
             )
         else:
-            k_read, v_read, ks_read, vs_read = kv_view(cache)
+            k_read, v_read, ks_read, vs_read = view or kv_view(cache)
             out = flash_attention(
                 q, k_read, v_read, policy, causal=causal, window=window,
                 q_offset=q_offset, kv_positions=cache.pos,

@@ -7,7 +7,8 @@ reference scans a stacked layer axis, this is a Python loop over the layers:
 parameters keep the stacked layout — ``params["layers"]["seg0_dense"]``
 leaves carry a leading layer axis and weights are ``(d_in, d_out)`` — and
 layer ``i`` reads the view ``leaf[i]``.  Decode caches are a list with one
-``KVCache`` per layer.  The other families (moe / ssm / hybrid / encdec /
+``KVCache`` per layer (or one ``PagedKVCache`` per layer, built by the
+paged serving layout).  The other families (moe / ssm / hybrid / encdec /
 vlm) are not ported yet.
 """
 from __future__ import annotations
@@ -20,7 +21,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
-    KVCache,
     Params,
     attention_apply,
     attention_init,
@@ -39,14 +39,15 @@ _SEG = "seg0_dense"
 
 @dataclasses.dataclass
 class DecodeState:
-    caches: Any  # {"seg0_dense": [KVCache per layer]}
+    caches: Any  # {"seg0_dense": [KVCache or PagedKVCache per layer]}
     position: Tensor  # scalar int32; (B,) int32 in per-slot (serving) layout
     enc_out: Tensor | None = None  # encdec only (not ported)
 
 
 def map_state(fn, *states: DecodeState) -> DecodeState:
     """Apply ``fn(leaf, ...)`` to every tensor leaf of DecodeStates of the
-    same structure (``None`` leaves stay ``None``)."""
+    same structure (``None`` leaves stay ``None``); cache nodes of either
+    layout (``KVCache``, ``PagedKVCache``) keep their type."""
     first = states[0]
 
     def leaf(*xs):
@@ -55,11 +56,11 @@ def map_state(fn, *states: DecodeState) -> DecodeState:
     caches = {}
     for key, layers in first.caches.items():
         out = []
-        for li in range(len(layers)):
+        for li, node in enumerate(layers):
             nodes = [s.caches[key][li] for s in states]
-            out.append(KVCache(*[
+            out.append(type(node)(*[
                 leaf(*[getattr(n, f.name) for n in nodes])
-                for f in dataclasses.fields(KVCache)]))
+                for f in dataclasses.fields(node)]))
         caches[key] = out
     return DecodeState(
         caches=caches,
@@ -71,7 +72,7 @@ def map_state(fn, *states: DecodeState) -> DecodeState:
 def state_leaves(state: DecodeState) -> list[Tensor]:
     """Every tensor leaf of a DecodeState, in ``map_state``'s order."""
     leaves = [getattr(node, f.name) for layers in state.caches.values()
-              for node in layers for f in dataclasses.fields(KVCache)]
+              for node in layers for f in dataclasses.fields(node)]
     leaves += [state.position, state.enc_out]
     return [x for x in leaves if x is not None]
 
@@ -79,9 +80,12 @@ def state_leaves(state: DecodeState) -> list[Tensor]:
 def copy_state_(dst: DecodeState, src: DecodeState) -> None:
     """Write every leaf of ``src`` into the tensors of ``dst`` (same
     structure), in place: ``dst``'s buffers outlive the call, as the static
-    state of a captured step must."""
+    state of a captured step must.  A leaf that already IS ``dst``'s tensor
+    is skipped: the paged pools and page tables, which a step writes in
+    place or not at all (a self-copy of a pool would move gigabytes)."""
     for d, s in zip(state_leaves(dst), state_leaves(src), strict=True):
-        d.copy_(s)
+        if d is not s:
+            d.copy_(s)
 
 
 def layer_params(stacked: Params, i: int) -> Params:
@@ -91,11 +95,12 @@ def layer_params(stacked: Params, i: int) -> Params:
     return stacked[i]
 
 
-def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, *, positions=None, cache=None):
+def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, *, positions=None, cache=None,
+                 write_pools: bool = True):
     """One dense block.  Returns (x, new_cache)."""
     h, new_cache = attention_apply(
         p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
-        positions=positions, cache=cache,
+        positions=positions, cache=cache, write_pools=write_pools,
     )
     x = x + h
     h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
@@ -163,13 +168,13 @@ class LanguageModel:
             return pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
         return pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
 
-    def _stack(self, seg_params, x, *, caches=None, positions=None):
+    def _stack(self, seg_params, x, *, caches=None, positions=None, write_pools=True):
         """Python loop over the stacked layer axis.  Returns (x, new_caches)."""
         new_caches = []
         for i in range(self.cfg.n_layers):
             x, nc = _block_apply(
                 layer_params(seg_params, i), x, self.cfg, positions=positions,
-                cache=None if caches is None else caches[i])
+                cache=None if caches is None else caches[i], write_pools=write_pools)
             new_caches.append(nc)
         return x, (None if caches is None else new_caches)
 
@@ -202,10 +207,12 @@ class LanguageModel:
         return DecodeState(caches=caches, position=position, enc_out=None)
 
     @torch.no_grad()
-    def decode_step(self, params: Params, tokens: Tensor,
-                    state: DecodeState) -> tuple[Tensor, DecodeState]:
+    def decode_step(self, params: Params, tokens: Tensor, state: DecodeState,
+                    write_pools: bool = True) -> tuple[Tensor, DecodeState]:
         """tokens: (B, S_step) — one (or a few) new token(s) per sequence.
-        ``state`` is not modified; the new state is returned."""
+        The new state is returned.  A dense ``state`` is not modified; the
+        pools of a paged state (``PagedKVCache`` nodes, shared by every row)
+        receive the new K/V in place, unless ``write_pools=False``."""
         tokens = tokens.to(self.device)
         x = self._embed(params, tokens)
         # per-slot layout: position (B,) -> positions (B, S); shared: (S,)
@@ -213,7 +220,7 @@ class LanguageModel:
         positions = (pos0[:, None] if pos0.dim() else pos0) + torch.arange(
             x.shape[1], device=x.device)
         x, nc = self._stack(params["layers"][_SEG], x, caches=state.caches[_SEG],
-                            positions=positions)
+                            positions=positions, write_pools=write_pools)
         logits = self._logits(params, x)
         new_state = DecodeState(
             caches={_SEG: nc},

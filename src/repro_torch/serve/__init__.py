@@ -8,15 +8,18 @@
     engine.py     masked decode step over the fixed slot array + streaming
                   API; preemption parks/resumes exact state rows
     config.py     ServeConfig — the frozen grouped construction surface
-    paged.py      KVLayout protocol with DenseLayout (per-slot ring)
+    paged.py      KVLayout protocol: DenseLayout (per-slot ring) and
+                  PagedLayout (page pools, prefix sharing with copy-on-
+                  write, page-pressure parking, precision-tiered pages)
     metrics.py    tok/s, TTFT, latency, slot occupancy, plan-cache hits,
                   per-tenant SLO attainment / fairness
 
 ``ServeEngine(model, params, config=ServeConfig(...))`` is the documented
 construction path.  ``AdaptConfig(slo=...)`` closes the runtime-precision
 loop (repro_torch.adapt); ``spec=SpecConfig(...)`` decodes self-speculatively
-(repro_torch.spec).  Paged layouts, per-tenant adaptation and trace export
-are not ported yet and raise NotImplementedError.
+(repro_torch.spec); ``cache=CacheConfig(layout="paged")`` serves from page
+pools.  Per-tenant adaptation and trace export are not ported yet and raise
+NotImplementedError.
 """
 from repro_torch.serve.config import (  # noqa: F401
     AdaptConfig,
@@ -26,7 +29,13 @@ from repro_torch.serve.config import (  # noqa: F401
 )
 from repro_torch.serve.engine import ServeEngine  # noqa: F401
 from repro_torch.serve.metrics import ServeMetrics  # noqa: F401
-from repro_torch.serve.paged import DenseLayout, KVLayout, make_layout  # noqa: F401
+from repro_torch.serve.paged import (  # noqa: F401
+    DenseLayout,
+    KVLayout,
+    PagedLayout,
+    PagePool,
+    make_layout,
+)
 from repro_torch.serve.scheduler import Request, Scheduler, ragged_requests  # noqa: F401
 from repro_torch.serve.tenancy import (  # noqa: F401
     RequestClass,

@@ -12,16 +12,17 @@ subsystems.  This module groups them:
 ``ServeEngine(model, params, config=cfg)`` is the documented construction
 path; the legacy flat kwargs remain as a deprecation shim that calls
 :meth:`ServeConfig.from_kwargs`, and ``launch/serve.py`` builds its config
-via :meth:`ServeConfig.from_flags`.  Features that are not ported yet
-(paged layouts, page tiers, trace export) are accepted here as values and
-refused by the engine or by ``from_flags`` with the ROADMAP item.
-Everything is frozen: a config is a value, shareable across engines and safe
-to put in test parametrizations.
+via :meth:`ServeConfig.from_flags`.  Trace export is not ported yet:
+``from_flags`` refuses ``--trace-out`` with the ROADMAP item.  Everything is
+frozen: a config is a value, shareable across engines and safe to put in
+test parametrizations.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Sequence
+
+from repro_torch.adapt.pages import PageTierPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,7 @@ class CacheConfig:
     layout: str = "dense"
     page_size: int = 16
     pool_pages: int | None = None
-    tier_policy: Any = None  # PageTierPolicy once the paged cache is ported
+    tier_policy: PageTierPolicy | None = None
     prefix_sharing: bool = True
 
     def __post_init__(self):
@@ -164,11 +165,12 @@ class ServeConfig:
 
             speculate = SpecConfig(k=args.draft_k,
                                    draft_shift=args.draft_shift)
-        if getattr(args, "tier_levels", ""):
-            raise NotImplementedError(
-                "--tier-levels: precision-tiered pages are not ported yet "
-                "(ROADMAP Queue A item 8, 'Paged KV cache')")
         tier = None
+        if getattr(args, "tier_levels", ""):
+            levels = tuple(int(b) for b in args.tier_levels.split(","))
+            tier = PageTierPolicy(
+                levels=levels, cold_after=args.tier_cold_after,
+                every=args.tier_every, budget=args.tier_budget or None)
         cache = CacheConfig(
             layout="paged" if getattr(args, "paged", False) else "dense",
             page_size=getattr(args, "page_size", 16),

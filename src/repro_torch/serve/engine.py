@@ -50,21 +50,30 @@ decode step (the produced tokens), once per speculative round (drafts,
 verify tokens and acceptance together), once per prefill (the first token),
 once per probe (the two residuals).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-per-tenant adaptation (``tenants=`` with ``slo=``), paged cache layouts.
+With ``CacheConfig(layout="paged")`` the state's KV caches are page pools
+(repro_torch.serve.paged): before each step the layout maps and
+copy-on-write forks the pages the step will write, parking a page-pressure
+victim when the pool runs dry; after it, page statistics and, every
+``tier_policy.every`` decode steps, an eager tier pass outside the graphs.
+A step writes the pools in place, so they are left out of the per-row merge
+and the copy-back; the probe's step reads them without writing.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+per-tenant adaptation (``tenants=`` with ``slo=``).
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.models.lm import LanguageModel, copy_state_, map_state, state_leaves
+from repro_torch.models.lm import LanguageModel, copy_state_, map_state
 from repro_torch.obs import NULL_TRACER, TraceConfig, Tracer
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.paged import make_layout
+from repro_torch.serve.paged import batch_leaves, make_layout, restore_pools, save_pools
 from repro_torch.serve.scheduler import Request, Scheduler, Ticket
 from repro_torch.serve.tenancy import RequestClass, Tenant
 
@@ -329,24 +338,42 @@ class ServeEngine:
         dev = self.device
         self._tokens = torch.zeros((self.slots, 1), dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
-        leaves = state_leaves(self.state)
+        ahead = self.spec.k + 1 if self.spec is not None else 1
+        snap = functools.partial(self._snapshot, ahead)
         self._step_graph = self._round_graph = self._probe_graph = None
         if self.spec is not None:
             self._draft_modes = self._spec_table.device_view(dev)
             self._verify_modes = (self._spec_table.device_view(dev)
                                   if self.slo is not None else None)
             self._round_graph = CompiledStep(
-                self._spec_round_body, dev, name="spec_round", mutates=leaves)
+                self._spec_round_body, dev, name="spec_round", snapshot=snap)
         elif self.slo is not None:
             self._step_modes = self.mode_table.device_view(dev)
             self._step_graph = CompiledStep(
-                self._modal_step_body, dev, name="masked_step_modal", mutates=leaves)
+                self._modal_step_body, dev, name="masked_step_modal", snapshot=snap)
         else:
             self._step_graph = CompiledStep(
-                self._plain_step_body, dev, name="masked_step", mutates=leaves)
+                self._plain_step_body, dev, name="masked_step", snapshot=snap)
         if self.slo is not None:
             self._probe_modes = self.mode_table.device_view(dev)
             self._probe_graph = CompiledStep(self._probe_body, dev, name="probe")
+
+    def _snapshot(self, n: int):
+        """Save what ``n`` decode steps overwrite in the static state — the
+        per-row leaves (a step's merge and copy-back write them whole) and,
+        paged, the pool slots of each row's next ``n`` appends (the pools
+        are written in place and too large to clone) — and return the
+        function that writes it back."""
+        leaves = batch_leaves(self._axes, self.state)
+        saved = [x.clone() for x in leaves]
+        pools = save_pools(self.state, n)
+
+        def restore():
+            for x, old in zip(leaves, saved):
+                x.copy_(old)
+            restore_pools(self.state, pools)
+
+        return restore
 
     # -- the steps -------------------------------------------------------------
 
@@ -394,12 +421,13 @@ class ServeEngine:
 
     def _probe_body(self):
         """One shadow forward at the probe view's modes; the state is read,
-        never written (``decode_step`` is out of place)."""
+        never written (``decode_step`` is out of place, and a paged state's
+        pools are read without writing)."""
         from repro_torch.adapt import bind_modes
 
         with bind_modes(self._probe_modes.scalars):
             logits, _ = self.model_decode.decode_step(
-                self.params, self._tokens, self.state)
+                self.params, self._tokens, self.state, write_pools=False)
         return logits[:, -1]
 
     def _spec_round_body(self):
@@ -469,6 +497,8 @@ class ServeEngine:
             events.append((ticket.rid, first))
             self._emit(ticket, slot, first)
         if self._active.any():
+            self._prepare_pages()
+        if self._active.any():
             if self.spec is not None:
                 events.extend(self._spec_step())
             else:
@@ -477,6 +507,7 @@ class ServeEngine:
                     and self.metrics.decode_steps % self.adapt_every == 0
                     and self._active.any()):
                 self._adapt_tick()
+            self._page_tick()
         return events
 
     def _can_admit(self, ticket: Ticket) -> bool:
@@ -488,11 +519,68 @@ class ServeEngine:
         return self.layout.can_admit(len(ticket.prompt),
                                      prompt=ticket.prompt)
 
+    def _prepare_pages(self) -> None:
+        """Paged allocation-on-append, before the step: every active row gets
+        pages covering the tokens this step will write (1 plain decode, k+1
+        speculative), private to the row.  When the pool cannot serve a row,
+        the scheduler names a page-pressure victim — lowest effective
+        priority among running requests — and its exact state parks (the
+        same bit-exact preemption path tenancy uses), freeing its pages;
+        repeat until the survivors fit.  Dense layouts return no failures
+        and this is a no-op."""
+        ahead = (self.spec.k + 1) if self.spec is not None else 1
+        while self._active.any():
+            lengths = {int(s): int(self._row_len[s])
+                       for s in np.nonzero(self._active)[0]}
+            state, failed = self.layout.prepare_step(self.state, lengths, ahead)
+            self._set_state(state)
+            if not failed:
+                return
+            victim = self.scheduler.page_victim()
+            if victim is None or victim.slot is None:
+                victim = self.scheduler.by_slot[failed[0]]
+            self._park_slot(victim, cause="page_pressure")
+            self.metrics.on_page_evict()
+            if self.tracer.enabled:
+                self.tracer.emit("page_evict", rid=victim.rid,
+                                 cause="page_pressure")
+                self.tracer.inc("page_evictions")
+
+    def _page_tick(self) -> None:
+        """Post-step page accounting: occupancy/sharing stats every step,
+        one tier demotion/measurement pass every ``tier_policy.every``
+        decode steps (repro_torch.adapt.pages), eager, between replays."""
+        stats = self.layout.page_stats()
+        if stats is None:
+            return
+        self.metrics.on_page_stats(stats)
+        tp = self.config.cache.tier_policy
+        if tp is None or self.metrics.decode_steps % tp.every != 0:
+            return
+        lengths = {int(s): int(self._row_len[s])
+                   for s in np.nonzero(self._active)[0]}
+        state, tstats = self.layout.tier_tick(
+            self.state, lengths, self.metrics.decode_steps)
+        self._set_state(state)
+        if tstats is not None:
+            self.metrics.on_page_tier(self.metrics.decode_steps, tstats)
+            if self.tracer.enabled:
+                self.tracer.emit(
+                    "tier_tick",
+                    cause="budget" if tp.budget else "open_loop",
+                    keep=tstats.get("keep"), depth=tstats.get("depth"),
+                    demoted=tstats.get("demoted"),
+                    promoted=tstats.get("promoted"),
+                    err=tstats.get("err"))
+                self.tracer.inc("tier_demotions", tstats.get("demoted", 0))
+
     def _park_slot(self, victim: Ticket, cause: str = "priority") -> None:
         """Preempt a running request: gather its exact per-slot state row
-        (as a dense batch-1 row), free the slot and requeue the ticket.
-        Nothing is recomputed at resume — ``_resume_slot`` scatters this
-        row back, so the token stream continues identically."""
+        (as a dense batch-1 row, whatever the layout), free the slot — and,
+        paged, the row's pages — and requeue the ticket.  Nothing is
+        recomputed at resume — ``_resume_slot`` scatters this row back, so
+        the token stream continues identically.  ``cause`` stamps the trace
+        event ("priority" preemption or "page_pressure" eviction)."""
         slot = victim.slot
         self._parked[victim.rid] = (
             self.layout.gather_row(self.state, slot),

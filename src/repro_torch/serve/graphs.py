@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Sequence
+from typing import Callable
 
 import torch
 
@@ -57,16 +57,18 @@ class CompiledStep:
     """One compiled step: ``fn`` captured once as a CUDA graph on ``device``
     and replayed on every call (see the module docstring).
 
-    ``mutates``: the persistent tensors ``fn`` writes (the static decode
-    state); the warm-up's writes to them are undone before the capture.
+    ``snapshot``: when ``fn`` writes persistent buffers (the static decode
+    state), a callable that saves what one run of ``fn`` overwrites and
+    returns the function that puts it back; the warm-up's writes are undone
+    with it before the capture.
     """
 
     def __init__(self, fn: Callable[[], object], device, *, name: str,
-                 mutates: Sequence[torch.Tensor] = ()):
+                 snapshot: Callable[[], Callable[[], None]] | None = None):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
-        self.mutates = tuple(mutates)
+        self.snapshot = snapshot
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
         #: kernel launches one replay makes, recorded at capture
@@ -90,15 +92,15 @@ class CompiledStep:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
-        saved = [t.clone() for t in self.mutates]
+        restore = self.snapshot() if self.snapshot is not None else None
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             self.fn()  # real launches: LAUNCHES counts them
         current.wait_stream(side)
-        for t, s in zip(self.mutates, saved):
-            t.copy_(s)
-        del saved
+        if restore is not None:
+            restore()
+        del restore
         graph = torch.cuda.CUDAGraph()
         before = build.launch_counts()
         with torch.cuda.graph(graph):

@@ -5,9 +5,12 @@ One round over the serve engine's slot array (B = slots):
   1. **draft** — ``k`` single-token substeps of the same decode step under
      the *draft* mode table (``bind_modes``: host ints, or the device
      scalars the engine's captured round reads as data, so changing the
-     draft depth builds nothing).  The draft runs on a scratch state: the decode step never
-     modifies the state it is given (every cache write is out of place), so
-     its low-precision KV writes are never kept.
+     draft depth builds nothing).  The draft runs on a scratch state: the
+     decode step never modifies a dense state it is given (every dense
+     cache write is out of place), so its low-precision KV writes are never
+     kept.  A paged state's pools are written in place: the ``k + 1`` slots
+     per row that the round appends to are saved before the draft and put
+     back after it.
   2. **verify** — ``k + 1`` substeps of the *exact baseline step* (static
      plans, or the live adaptive table when the engine adapts) from the same
      pre-round state, over the inputs ``[t0, d1..dk]``, one token at a time.
@@ -26,7 +29,10 @@ One round over the serve engine's slot array (B = slots):
        * KV rows (``k``/``v``/scales/``pos``): entries the verify chain
          wrote past the accepted point are restored from the pre-round
          cache by a ``pos > len0 + n_acc`` mask — this also repairs ring
-         rows that a write past the cache's capacity landed on;
+         rows that a write past the cache's capacity landed on.  For paged
+         pools the pre-round content is the saved slots, written back where
+         the mask holds (the reference mixes whole-row views and scatters
+         them back; only the appended slots can differ);
        * inactive rows keep their exact pre-round state (the engine's
          masking invariant).
 
@@ -34,8 +40,7 @@ Where the reference scans the substeps inside one compiled function, the
 round here is a Python loop of ``k`` draft and ``k + 1`` verify substeps;
 drafts, acceptance and the rollback stay on the device, so the engine
 captures the whole round as one CUDA graph (repro_torch.serve.graphs) and
-reads its results with ONE host sync.  The paged twins of the
-rollback wait for the paged cache (ROADMAP Queue A item 8).
+reads its results with ONE host sync.
 """
 from __future__ import annotations
 
@@ -45,9 +50,10 @@ import dataclasses
 import torch
 
 from repro_torch.adapt import bind_modes
-from repro_torch.models.layers import KVCache
+from repro_torch.models.layers import KVCache, PagedKVCache, paged_restore_slots
 from repro_torch.models.lm import DecodeState
 from repro_torch.serve.engine import row_select as _sel  # the masked-step freeze
+from repro_torch.serve.paged import restore_pools, save_pools
 
 
 def _gather_substep(stacked: torch.Tensor, n_acc: torch.Tensor, ax: int) -> torch.Tensor:
@@ -97,22 +103,48 @@ def _roll_kv(axn: KVCache, c0: KVCache, cf: KVCache, n_acc: torch.Tensor,
     return _map_kv(lambda ax, new, old: _sel(ax, new, old, active), axn, rolled, c0)
 
 
-def _map_kv(fn, *nodes: KVCache) -> KVCache:
-    """``fn(leaf, ...)`` over the fields of KV caches of one layout (a
+def _roll_paged(axn: PagedKVCache, c0: PagedKVCache, cf: PagedKVCache,
+                n_acc: torch.Tensor, active: torch.Tensor, saved: tuple) -> PagedKVCache:
+    """Paged twin of :func:`_roll_kv`.  The verify chain appended through
+    the page table (the layout mapped and copy-on-write forked every page
+    of the k+1 appends beforehand), so rejected entries live in private
+    pages: the saved pre-round content goes back where a substep past the
+    accepted point wrote, for active rows (inactive rows wrote scratch).
+    Per-row leaves (pos/length) then freeze inactive rows via the usual
+    select; pool and table leaves are SHARED."""
+    keep_last = c0.length + n_acc  # position of last kept token
+    n = saved[0].shape[1]
+    written = c0.length[:, None] + torch.arange(n, device=n_acc.device)  # (B, k+1)
+    paged_restore_slots(cf, saved, (written > keep_last[:, None]) & active[:, None])
+    mask = cf.pos > keep_last[:, None]
+    rolled = dataclasses.replace(cf, pos=torch.where(mask, c0.pos, cf.pos),
+                                 length=(keep_last + 1).to(c0.length.dtype))
+    return _map_kv(lambda ax, new, old: _sel(ax, new, old, active), axn, rolled, c0)
+
+
+def _map_kv(fn, *nodes):
+    """``fn(leaf, ...)`` over the fields of cache nodes of one layout (a
     ``None`` field, such as the scales of a bf16 cache, stays ``None``)."""
     def field(name):
         leaves = [getattr(n, name) for n in nodes]
         return None if any(x is None for x in leaves) else fn(*leaves)
 
-    return KVCache(*[field(f.name) for f in dataclasses.fields(KVCache)])
+    return type(nodes[0])(*[field(f.name) for f in dataclasses.fields(nodes[0])])
 
 
 def rollback(axes: DecodeState, state0: DecodeState, state_fin: DecodeState,
              snaps: list[DecodeState], n_acc: torch.Tensor,
-             active: torch.Tensor) -> DecodeState:
-    """One rollback-select over the whole decode state."""
+             active: torch.Tensor, saved: dict | None = None) -> DecodeState:
+    """One rollback-select over the whole decode state (``saved``: the
+    paged nodes' pre-round slots, ``serve.paged.save_pools``; a dense
+    state needs none)."""
+    def roll(axn, c0, cf):
+        if isinstance(c0, PagedKVCache):
+            return _roll_paged(axn, c0, cf, n_acc, active, saved[id(c0)])
+        return _roll_kv(axn, c0, cf, n_acc, active)
+
     caches = {
-        key: [_roll_kv(axn, c0, cf, n_acc, active)
+        key: [roll(axn, c0, cf)
               for axn, c0, cf in zip(axes.caches[key], layers, state_fin.caches[key])]
         for key, layers in state0.caches.items()}
     stacked = torch.stack([s.position for s in snaps])
@@ -144,6 +176,7 @@ def build_spec_round(model, axes: DecodeState, k: int, modal_verify: bool):
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     def round_fn(params, tokens, state, active, draft_modes, verify_modes):
+        saved = save_pools(state, k + 1)
         # -- draft: k cheap-mode substeps on a scratch state ----------------
         drafts = []
         tok, st = tokens, state
@@ -154,6 +187,7 @@ def build_spec_round(model, axes: DecodeState, k: int, modal_verify: bool):
                 drafts.append(nxt)
                 tok = nxt[:, None]
         drafts = torch.stack(drafts)  # (k, B)
+        restore_pools(state, saved)  # undo the draft's pool writes
 
         # -- verify: k+1 exact baseline substeps from the pre-round state ---
         inputs = torch.cat([tokens.to(torch.int32), drafts.T], dim=1)  # (B, k+1)
@@ -169,7 +203,7 @@ def build_spec_round(model, axes: DecodeState, k: int, modal_verify: bool):
         # -- accept the longest agreeing prefix, roll back the rest ---------
         match = (drafts == greedy[:-1]).to(torch.int32)  # (k, B)
         n_acc = torch.cumprod(match, dim=0).sum(dim=0).to(torch.int32)  # in [0, k]
-        new_state = rollback(axes, state, st, snaps, n_acc, active)
+        new_state = rollback(axes, state, st, snaps, n_acc, active, saved)
         return drafts, greedy, n_acc, new_state
 
     return round_fn

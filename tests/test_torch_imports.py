@@ -60,7 +60,7 @@ def test_the_package_has_the_modules_of_the_slice():
     for want in ("core.rmpm", "core.strassen", "plan.planner", "plan.cost",
                  "kernels.build", "kernels.limb_matmul.ops", "kernels.tile_matmul.ops",
                  "kernels.tile_matmul.tile_policy", "kernels.quantize_mantissa.ops",
-                 "models.layers", "models.lm", "adapt.controller", "adapt.probe",
+                 "models.layers", "models.lm", "adapt.controller", "adapt.pages", "adapt.probe",
                  "adapt.runtime_policy", "obs.tracer", "serve.engine", "serve.scheduler",
                  "serve.tenancy", "serve.metrics", "serve.config", "serve.paged",
                  "launch.serve", "convert", "configs.qwen1_5_0_5b",

@@ -430,25 +430,21 @@ class TestNotPortedYet:
     def test_engine_options(self, tiny):
         model, params = tiny
         base = dict(batch_slots=2, max_len=16)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            ServeEngine(model, params, config=ServeConfig(
-                spec=SpecConfig(), cache=CacheConfig(layout="paged"), **base))
         with pytest.raises(NotImplementedError, match="Queue A item 9"):
             ServeEngine(model, params, config=ServeConfig(
                 adapt=AdaptConfig(slo=SLO(max_err=0.1)),
                 scheduling=SchedulingConfig(tenants=[Tenant("a")]), **base))
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            ServeEngine(model, params, config=ServeConfig(
-                cache=CacheConfig(layout="paged"), **base))
+        # the paged cache is ported: tests/test_torch_paged_engine.py serves it
+        for spec in (None, SpecConfig()):
+            eng = ServeEngine(model, params, config=ServeConfig(
+                spec=spec, cache=CacheConfig(layout="paged"), **base))
+            assert eng.layout.name == "paged"
         with pytest.raises(NotImplementedError, match="greedy"):
             ServeEngine(model, params, config=ServeConfig(greedy=False, **base))
         with pytest.raises(ValueError, match="not both"):
             ServeEngine(model, params, batch_slots=2, config=ServeConfig(**base))
 
     @pytest.mark.parametrize("flags,match", [
-        (["--speculate", "--paged"], "Queue A item 8"),
-        (["--paged"], "Queue A item 8"),
-        (["--tier-levels", "bf16,int8"], "Queue A item 8"),
         (["--trace-out", "t.json"], "Queue A item 10"),
         (["--multi-tenant", "--adapt"], "Queue A item 9"),
     ])

@@ -33,7 +33,6 @@ from repro_torch.models.lm import map_state
 from repro_torch.plan import MODE_REL_ERROR
 from repro_torch.serve import (
     AdaptConfig,
-    CacheConfig,
     Request,
     SchedulingConfig,
     ServeConfig,
@@ -251,9 +250,6 @@ class TestMechanics:
         base = dict(batch_slots=2, max_len=16)
         with pytest.raises(TypeError, match="SpecConfig"):
             ServeEngine(model, params, config=ServeConfig(spec={"k": 2}, **base))
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            ServeEngine(model, params, config=ServeConfig(
-                spec=SpecConfig(), cache=CacheConfig(layout="paged"), **base))
         with pytest.raises(NotImplementedError, match="Queue A item 9"):
             ServeEngine(model, params, config=ServeConfig(
                 spec=SpecConfig(), adapt=AdaptConfig(slo=SLO(max_err=0.1)),
