@@ -15,25 +15,30 @@ full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
 table, serves self-speculatively beside a plain arm, and serves from the
 paged KV cache (prefix sharing, page-pressure parking, precision-tiered
-pages through the quantize kernel) beside the dense cache, checking what
-comes out.  The engine runs its decode step, probe and speculative round as CUDA
-graphs (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt`` and
-``serve_spec`` also serve eagerly (``graphs.eager()``) and require the same
-tokens, and ``step_breakdown`` times a decode step both ways.  Every phase
+pages through the quantize kernel) beside the dense cache, and serves two
+tenants with mode tables of their own (per-tenant adaptation through the
+mode-map kernel), the conditioned hot/cold workload and a traced run
+(Chrome trace, profiler), checking what comes out.  The engine runs its
+decode step, probe and speculative round as CUDA graphs
+(``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
+``serve_spec`` and ``serve_tenants`` also serve eagerly (``graphs.eager()``)
+and require the same tokens, and ``step_breakdown`` times a decode step both
+ways.  Every phase
 prints one JSON line; any failed phase ends the run with a non-zero exit
 code.  There is no CPU mode: without a GPU the script raises before it
 prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
-``tune``, ``serve_spec`` and ``serve_paged`` phases always run at full
-depth).
+``tune``, ``serve_spec``, ``serve_paged`` and ``serve_tenants`` phases
+always run at full depth).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -49,6 +54,7 @@ _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
 from repro_torch.adapt import SLO, PageTierPolicy, bind_modes  # noqa: E402
+from repro_torch.adapt.workload import conditioned_model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
@@ -79,13 +85,18 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: E402
+from repro_torch.obs import TraceConfig, span_violations, validate_chrome  # noqa: E402
 from repro_torch.plan import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdaptConfig,
     CacheConfig,
     Request,
+    RequestClass,
+    SchedulingConfig,
     ServeConfig,
     ServeEngine,
+    Tenant,
+    class_requests,
     ragged_requests,
 )
 from repro_torch.serve.graphs import eager  # noqa: E402
@@ -124,7 +135,7 @@ DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + 
 #: of 16 tokens + the scratch page, 16 KV heads of 64
 PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
-          "serve_planned", "tune", "serve_spec", "serve_paged")
+          "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants")
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -950,17 +961,21 @@ def phase_serve_static(params_cache, n_layers):
     return counts
 
 
-def adapt_run(model, params, cfg: ServeConfig, reqs: list[Request], eager_run: bool):
+def adapt_run(model, params, cfg: ServeConfig, reqs: list[Request], eager_run: bool,
+              time_steps: bool = False):
     """Serve ``reqs`` on an adaptive engine step by step, captured or eager,
     with the launch counts zeroed just before.  Prefill runs unbound (limb
     kernel), decode bound (mode-map kernel): a pure decode step must launch
     no limb kernel.  After the third decode step every site is shifted one
     mode down (besides the controller's own shifts), so the run crosses at
     least one shift (one up if the controller already sat at the bottom).
+    ``time_steps``: the decode step runs under a :class:`StepTimer`.
     Returns (engine, outputs, counts, s, capture counts
     seen after each step once both compiled steps had run)."""
     eng = ServeEngine(model, params, config=cfg)
     time_prefills(eng)
+    if time_steps:
+        eng._step_graph = StepTimer(eng, profile_steps=0)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     limb_after_prefill, captures, forced = None, set(), False
@@ -997,7 +1012,8 @@ def phase_serve_adapt(params_cache, n_layers):
     reqs = ragged_requests(4, model.cfg.vocab, 48, 16, np.random.default_rng(1))
     cfg = ServeConfig(batch_slots=4, max_len=96,
                       adapt=AdaptConfig(slo=SLO(max_err=0.05), adapt_every=2))
-    eng, outs, counts, wall, captures = adapt_run(model, params, cfg, reqs, eager_run=False)
+    eng, outs, counts, wall, captures = adapt_run(model, params, cfg, reqs, eager_run=False,
+                                                  time_steps=True)
     e_eng, e_outs, _, e_wall, e_captures = adapt_run(model, params, cfg, reqs, eager_run=True)
     for r in reqs:
         check(len(outs[r.rid]) == eng.scheduler.tickets[r.rid].budget,
@@ -1018,6 +1034,7 @@ def phase_serve_adapt(params_cache, n_layers):
          mode_switches=eng.mode_table.switches,
          mode_timeline=[[int(s), lab] for s, lab in eng.metrics.mode_timeline],
          adaptation=eng.describe_adaptation(), captured_tokens_equal_eager=True,
+         replay=eng._step_graph.summary(),
          **serve_summary(eng, outs, wall), eager=serve_summary(e_eng, e_outs, e_wall))
     return counts
 
@@ -1297,7 +1314,8 @@ class StepTimer:
     events around every replay (the first call, which captures, is not
     timed), with the rows active and the distinct pool pages the tables map
     at that step; and ``torch.profiler`` around the first ``profile_steps``
-    replays with every row active.  Every other attribute is the step's."""
+    replays with every row active (none at 0).  Every other attribute is the
+    step's."""
 
     def __init__(self, eng, profile_steps: int = 3):
         self.eng = eng
@@ -1320,7 +1338,7 @@ class StepTimer:
         groups = getattr(eng.layout, "groups", None)
         pages = (None if groups is None else
                  sum(len(np.unique(g.pool.tbl[g.pool.tbl >= 0])) for g in groups))
-        if active == eng.slots and self.prof is None:
+        if active == eng.slots and self.prof is None and self.profile_steps:
             self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.start()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1353,7 +1371,7 @@ class StepTimer:
                    s.elapsed_time(e) for s, e, _, _ in self.records) if self.records else None,
                "distinct_pages_mapped_median": (statistics.median(p for _, p in full)
                                                 if full and full[0][1] is not None else None)}
-        if self.profiled == self.profile_steps:
+        if self.profile_steps and self.profiled == self.profile_steps:
             events = [e for e in self.prof.key_averages()
                       if getattr(e, "device_time_total", 0) > 0
                       and not e.key.startswith(("Memcpy HtoD", "Memcpy DtoH"))]
@@ -1562,6 +1580,357 @@ def phase_serve_paged(params_cache):
 
 
 # ---------------------------------------------------------------------------
+# per-tenant adaptation, the conditioned workload, tracing
+# ---------------------------------------------------------------------------
+
+
+#: the launcher's canned tenant mix (``launch/serve.py --multi-tenant``), with
+#: a tight and a loose accuracy budget under one SLO
+TENANT_SLO = 0.05
+TENANTS = (Tenant("interactive", priority=0, share=2.0, accuracy=1e-3),
+           Tenant("bulk", priority=2, share=1.0, accuracy=0.25))
+#: the launcher's classes at ``--prompt-len 12 --max-new 16``
+TENANT_CLASSES = (RequestClass("chat", slo_steps=10, prompt_len=6, max_new=8),
+                  RequestClass("batch", prompt_len=12, max_new=16))
+#: the conditioned workload's SLO at width 384: above the tame traffic's M8
+#: probe residuals and below the hot batch's (0.02-0.22 and 0.42-0.47 with
+#: the plain versions on the CPU, on the same weights)
+COND_SLO = 0.3
+COND_WIDTH = 384
+
+
+def tenant_traffic(vocab: int, seed: int, n: int = 8) -> list[Request]:
+    """The launcher's ``--multi-tenant`` mix: ``n/2`` bulk/batch requests,
+    then ``n/2`` interactive/chat ones."""
+    interactive, bulk = TENANTS
+    chat, batch = TENANT_CLASSES
+    rng = np.random.default_rng(seed)
+    reqs = class_requests(batch, bulk, n // 2, vocab, rng)
+    return reqs + class_requests(chat, interactive, n - n // 2, vocab, rng, rid_base=100)
+
+
+def bound_max(eng) -> list[int]:
+    """The per-site maximum over the tables of the tenants with active
+    slots (every table when none has), in the step view's site order:
+    what the modal step must have bound."""
+    active = eng._tenant_active() or eng.tenant_tables
+    return [max(int(eng.tenant_tables[n].modes()[site]) for n in active)
+            for site in eng._step_modes.sites]
+
+
+def tenants_run(model, params, cfg: ServeConfig, reqs: list[Request], eager_run: bool,
+                force: str | None = None, time_steps: bool = False):
+    """Serve ``reqs`` on a per-tenant adaptive engine step by step, captured
+    or eager, with the launch counts zeroed just before.  Every decode step
+    must bind, in the modal step's device view, the per-site maximum over
+    the tables of the tenants active at that step (read back from the card
+    after the step).  Every tick is timed (host wall; it ends in one sync a
+    tenant) with the tenants it probed.  ``force``: after the third decode
+    step that tenant's table is shifted one rung (down, or up at the
+    bottom); no other table or controller may move with it.  Returns
+    (engine, outputs, counts, s, capture counts seen after each step once a
+    probe had run, tick records, the forced shift)."""
+    eng = ServeEngine(model, params, config=cfg)
+    time_prefills(eng)
+    if time_steps:
+        eng._step_graph = StepTimer(eng, profile_steps=0)
+    tick, decode = eng._adapt_tick_tenants, eng._decode_step
+    ticks: list[dict] = []
+
+    def timed_tick():
+        names = sorted(n for n in eng._tenant_active() if n in eng.tenant_tables)
+        t0 = time.perf_counter()
+        tick()
+        ticks.append({"step": eng.metrics.decode_steps, "tenants": names,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+
+    def checked_decode():
+        want = bound_max(eng)
+        events = decode()
+        got = eng._step_modes._buf.tolist()  # the view this step read
+        check(got == want, f"step {eng.metrics.decode_steps} bound {got}, tables say {want}")
+        return events
+
+    eng._adapt_tick_tenants, eng._decode_step = timed_tick, checked_decode
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    captures, forced = set(), None
+    t0 = time.perf_counter()
+    with eager() if eager_run else contextlib.nullcontext():
+        for r in reqs:
+            eng.submit(dataclasses.replace(r))
+        while eng.scheduler.has_work():
+            eng.step()
+            if any(c.history for c in eng.tenant_ctrl.values()):
+                captures.add(eng.graph_capture_count)  # both steps have run
+            if force and forced is None and eng.metrics.decode_steps >= 3:
+                others = {n: (eng.tenant_tables[n].modes(), len(eng.tenant_ctrl[n].history))
+                          for n in eng.tenant_tables if n != force}
+                table = eng.tenant_tables[force]
+                check(table.shift_all(1 if table.at_min else -1, tag="forced"),
+                      f"the forced shift did not move {force}'s table")
+                check(all((eng.tenant_tables[n].modes(), len(eng.tenant_ctrl[n].history)) == o
+                          for n, o in others.items()), "a forced shift moved another tenant")
+                forced = {"step": eng.metrics.decode_steps, "tenant": force,
+                          "label": table.label()}
+        outs = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if force:
+        check(forced is not None, "the run ended before the forced shift")
+        for n, t in eng.tenant_tables.items():
+            check(n == force or all(tag != "forced" for tag, _ in t.history),
+                  f"tenant {n}'s table took the forced shift")
+    return eng, outs, build.launch_counts(), wall, captures, ticks, forced
+
+
+def tenant_record(eng) -> dict:
+    """Per tenant: its table's history (tag, label), its controller's
+    decisions (step, decision) and residuals, and its probe count."""
+    return {n: {"table": [[str(tag), "/".join(sorted({m.name for m in modes.values()}))]
+                          for tag, modes in eng.tenant_tables[n].history],
+                "decisions": [[o.step, o.decision] for o in eng.tenant_ctrl[n].history],
+                "errs": [o.err for o in eng.tenant_ctrl[n].history],
+                "probes": len(eng.tenant_ctrl[n].history),
+                "final": eng.tenant_tables[n].label()}
+            for n in sorted(eng.tenant_tables)}
+
+
+def tick_summary(ticks: list[dict]) -> dict:
+    by_n: dict[int, list[float]] = {}
+    for t in ticks:
+        by_n.setdefault(len(t["tenants"]), []).append(t["ms"])
+    return {f"{n}_tenants": {"ticks": len(v), "ms_median": statistics.median(v),
+                             "ms_min": min(v), "ms_max": max(v)}
+            for n, v in sorted(by_n.items())}
+
+
+def conditioned_part() -> dict:
+    """The conditioned hot/cold workload (``conditioned_model``) at width
+    384, M8 ``impl="pallas"`` (bound sites take the mode-map kernel):
+    normal, hot, normal traffic through a single-table engine (up within
+    ``cooldown + 2 * adapt_every`` decode steps of the hot batch joining,
+    back to M8 after); a hot tenant beside a cold one (hot shifts up, cold
+    never leaves M8); and at width 1024, monitor mode, whether the hot
+    residual still clears the SLO (reported, not required)."""
+    out = {}
+    wl = conditioned_model(width=COND_WIDTH)
+    model = wl.model.with_policy(PrecisionPolicy(default=Mode.M8, impl="pallas"))
+    slo = SLO(max_err=COND_SLO)
+    cfg = ServeConfig(batch_slots=4, max_len=48, adapt=AdaptConfig(slo=slo, adapt_every=2))
+    eng = ServeEngine(model, wl.params, config=cfg)
+    rng = np.random.default_rng(0)
+    build.reset_launch_counts()
+    phases = []
+    for base, hot, max_new in ((0, set(), 8), (100, {0, 1, 2}, 12), (200, set(), 8)):
+        at_join, up_before = eng.metrics.decode_steps, eng.controller.up_shifts
+        for r in wl.requests(4, hot=hot, rng=rng, max_new=max_new):
+            eng.submit(dataclasses.replace(r, rid=r.rid + base))
+        up_at = None
+        while eng.scheduler.has_work():
+            eng.step()
+            if up_at is None and eng.controller.up_shifts > up_before:
+                up_at = eng.metrics.decode_steps
+        phases.append({"joined_at_step": at_join, "up_at_step": up_at,
+                       "label_at_end": eng.mode_table.label()})
+    counts = build.launch_counts()
+    window = eng.controller.cooldown + 2 * eng.adapt_every
+    check(phases[0]["up_at_step"] is None and phases[0]["label_at_end"] == "M8",
+          f"conditioned: tame traffic left M8 ({phases[0]})")
+    check(phases[1]["up_at_step"] is not None
+          and phases[1]["up_at_step"] - phases[1]["joined_at_step"] <= window,
+          f"conditioned: the hot batch did not shift up within {window} steps ({phases[1]})")
+    check(phases[2]["label_at_end"] == "M8" and eng.controller.down_shifts >= 1,
+          f"conditioned: not back at M8 after the hot batch ({phases[2]})")
+    check(counts["tile_matmul"] > 0, "conditioned: the mode-map kernel was launched no time")
+    hist = eng.controller.history
+    out["single_table"] = {
+        "width": COND_WIDTH, "slo": COND_SLO, "adapt_every": 2, "phases": phases,
+        "window_limit": window, "timeline": [[int(s), lab] for s, lab in eng.metrics.mode_timeline],
+        "probes": [[o.step, o.err, o.err_down, o.decision] for o in hist],
+        "launches": counts, "graph_captures": eng.graph_capture_count}
+
+    # a hot tenant beside a cold one, their requests interleaved
+    cfg = ServeConfig(batch_slots=4, max_len=48, adapt=AdaptConfig(slo=slo, adapt_every=2),
+                      scheduling=SchedulingConfig(tenants=[Tenant("hot"), Tenant("cold")]))
+    eng = ServeEngine(model, wl.params, config=cfg)
+    rng = np.random.default_rng(1)
+    hot = wl.requests(4, hot={0, 1, 2, 3}, rng=rng, max_new=12)
+    cold = wl.requests(4, hot=set(), rng=rng, max_new=12)
+    for h, c in zip(hot, cold):
+        eng.submit(dataclasses.replace(h, tenant="hot"))
+        eng.submit(dataclasses.replace(c, rid=c.rid + 100, tenant="cold"))
+    cold_labels = set()
+    while eng.scheduler.has_work():
+        eng.step()
+        cold_labels.add(eng.tenant_tables["cold"].label())
+    check(eng.tenant_ctrl["hot"].up_shifts >= 1
+          and int(Mode[eng.tenant_tables["hot"].label()]) > int(Mode.M8),
+          "conditioned: the hot tenant did not shift up")
+    check(cold_labels == {"M8"} and eng.tenant_ctrl["cold"].up_shifts == 0,
+          f"conditioned: the cold tenant left M8 ({sorted(cold_labels)})")
+    check(eng.graph_capture_count == 2, f"conditioned: {eng.graph_capture_count} captures")
+    out["hot_beside_cold"] = {**tenant_record(eng),
+                              "timeline": [[int(s), lab] for s, lab in eng.metrics.mode_timeline]}
+
+    # width 1024 (qwen's own d_model), monitor mode: reported only
+    wl = conditioned_model(width=1024)
+    model = wl.model.with_policy(PrecisionPolicy(default=Mode.M8, impl="pallas"))
+    eng = ServeEngine(model, wl.params, config=ServeConfig(
+        batch_slots=4, max_len=48, adapt=AdaptConfig(slo=slo, adapt_every=2, adapt=False)))
+    rng = np.random.default_rng(0)
+    errs = {}
+    for base, hot, max_new, label in ((0, set(), 8, "tame"), (100, {0, 1, 2}, 12, "hot"),
+                                      (200, set(), 8, "tame_after")):
+        n0 = len(eng.controller.history)
+        for r in wl.requests(4, hot=hot, rng=rng, max_new=max_new):
+            eng.submit(dataclasses.replace(r, rid=r.rid + base))
+        eng.drain()
+        errs[label] = [o.err for o in eng.controller.history[n0:]]
+    out["width_1024"] = {
+        "slo": COND_SLO, "errs": errs,
+        "hot_max": max(errs["hot"]), "tame_max": max(errs["tame"] + errs["tame_after"]),
+        "hot_clears_slo": max(errs["hot"]) > COND_SLO,
+        "tame_under_slo": max(errs["tame"] + errs["tame_after"]) < COND_SLO}
+    return out
+
+
+def release() -> None:
+    """Free the engines that are gone: the monkeypatched hooks of a phase
+    hold their engine in a reference cycle, and each captured engine keeps
+    its graphs' private memory pools (several GB at full depth) until the
+    cycle is collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def traced_summary(eng, trace_path: str) -> dict:
+    """Export a traced engine's Chrome trace and hold it to the port's own
+    checks: schema and span tree, request lifecycles, a lossless ring, no
+    recompile, a non-empty Prometheus exposition."""
+    doc = eng.tracer.export_chrome(trace_path)
+    events = list(eng.tracer.events)
+    problems = validate_chrome(doc) + span_violations(events)
+    check(not problems, f"serve_tenants trace: {problems[:5]}")
+    check(eng.tracer.dropped == 0, f"{eng.tracer.dropped} trace events dropped")
+    check(eng.profiler.recompiles == 0, f"{eng.profiler.recompiles} recompiles")
+    prom = eng.tracer.prometheus()
+    check(bool(prom.strip()), "empty Prometheus exposition")
+    kinds: dict[str, int] = {}
+    for e in events:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    return {"chrome_events": len(doc["traceEvents"]), "trace_events": eng.tracer.emitted,
+            "kinds": kinds,
+            "mode_switch_tenants": sorted({(e.data or {}).get("tenant") for e in events
+                                           if e.kind == "mode_switch"} - {None}),
+            "recompiles": eng.profiler.recompiles, "profile": eng.profiler.snapshot(),
+            "prometheus_lines": len(prom.splitlines()),
+            "timeline_rows": len(eng.tracer.precision_timeline()),
+            "trace_path": os.path.relpath(trace_path, _ROOT)}
+
+
+def phase_serve_tenants(params_cache):
+    """Per-tenant adaptation at full width and depth (M24 ``impl="pallas"``,
+    4 slots, ``adapt_every`` 2): the launcher's interactive/bulk mix with a
+    tight and a loose budget, captured and eager — equal tokens, per-tenant
+    timelines and controller decisions; one build; two captures (decode
+    step, probe) whatever mix is active; the bound view at the per-site
+    maximum after every step; one forced shift of the bulk table that the
+    interactive tenant does not feel; probes per tenant equal to its ticks
+    with active slots.  Then the conditioned workload (``conditioned_part``)
+    and the per-tenant run traced (``TraceConfig``, the trace written under
+    ``build/``) twice, between two more untraced runs: tokens and launches
+    per replay equal the untraced run's, a valid Chrome trace, no lifecycle
+    violation, no recompile, and the walls of both arms.  Each engine is
+    released before the next is made."""
+    release()
+    policy = PrecisionPolicy(default=Mode.M24, impl="pallas")
+    model = full_width_model(policy)
+    params = params_cache(model)
+    build.library()
+    reqs = tenant_traffic(model.cfg.vocab, seed=6)
+    cfg = ServeConfig(batch_slots=4, max_len=48,
+                      scheduling=SchedulingConfig(tenants=list(TENANTS),
+                                                  classes=list(TENANT_CLASSES)),
+                      adapt=AdaptConfig(slo=SLO(max_err=TENANT_SLO), adapt_every=2))
+    eng, outs, counts, wall, captures, ticks, forced = tenants_run(
+        model, params, cfg, reqs, False, force="bulk", time_steps=True)
+    record = tenant_record(eng)
+    check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 under per-tenant tables")
+    check(captures == {2} and eng.graph_capture_count == 2,
+          f"serve_tenants: capture counts {sorted(captures)} (want only 2)")
+    check(counts["tile_matmul"] > 0, "serve_tenants launched the mode-map kernel no time")
+    probed = {n: sum(n in t["tenants"] for t in ticks) for n in eng.tenant_tables}
+    check(probed == {n: record[n]["probes"] for n in record},
+          f"serve_tenants: probes {({n: r['probes'] for n, r in record.items()})} "
+          f"against ticks with active slots {probed}")
+    check(min(probed["interactive"], probed["bulk"]) > 0, "a tenant was never probed")
+    check(any(len(t["tenants"]) == 2 for t in ticks), "no tick probed both tenants")
+    launches_per_replay = {g: getattr(eng, g).launches for g in ("_step_graph", "_probe_graph")}
+    main = dict(graph_capture_counts_seen=sorted(captures), forced=forced, per_tenant=record,
+                bound_timeline=[[int(s), lab] for s, lab in eng.metrics.mode_timeline],
+                adaptation=eng.describe_adaptation().splitlines(),
+                replay=eng._step_graph.summary(), ticks=tick_summary(ticks), tick_records=ticks,
+                **serve_summary(eng, outs, wall))
+    timeline = eng.metrics.mode_timeline
+    del eng
+    release()
+
+    e_eng, e_outs, _, e_wall, e_captures, e_ticks, _ = tenants_run(
+        model, params, cfg, reqs, True, force="bulk")
+    check_same_tokens(e_outs, outs, "serve_tenants eager against captured")
+    e_record = tenant_record(e_eng)
+    for n in record:
+        check(record[n]["table"] == e_record[n]["table"],
+              f"serve_tenants: tenant {n}'s mode timeline differs captured / eager")
+        check(record[n]["decisions"] == e_record[n]["decisions"],
+              f"serve_tenants: tenant {n}'s controller decisions differ captured / eager")
+    check(e_eng.metrics.mode_timeline == timeline,
+          "serve_tenants: the bound mode timelines differ captured / eager")
+    check(e_captures == {0}, f"serve_tenants: the eager run captured {sorted(e_captures)}")
+    err_gap = max((abs(a - b) for n in record
+                   for a, b in zip(record[n]["errs"], e_record[n]["errs"])), default=0.0)
+    eager = dict(eager_ticks=tick_summary(e_ticks), eager=serve_summary(e_eng, e_outs, e_wall))
+    del e_eng
+    release()
+
+    cond = conditioned_part()
+    release()
+
+    # (c) the per-tenant run traced against untraced, captured, in the
+    # order traced / untraced / untraced / traced (host walls spread from
+    # run to run by more than tracing costs); each against the main run
+    trace_path = os.path.join(_ROOT, "build", "serve_tenants_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    t_cfg = dataclasses.replace(cfg, trace=TraceConfig(out=trace_path))
+    walls = {"traced": [], "untraced": []}
+    for label in ("traced", "untraced", "untraced", "traced"):
+        t_eng, t_outs, t_counts, t_wall, _, _, _ = tenants_run(
+            model, params, t_cfg if label == "traced" else cfg, reqs, False, force="bulk")
+        check_same_tokens(t_outs, outs, f"serve_tenants {label} against the main run")
+        check(t_counts == counts, f"serve_tenants: {label} launches {t_counts} != {counts}")
+        for g, want in launches_per_replay.items():
+            check(getattr(t_eng, g).launches == want,
+                  f"serve_tenants: a {label} {g} replay launches other kernels")
+        walls[label].append(t_wall)
+        if label == "traced":
+            traced = traced_summary(t_eng, trace_path)
+        del t_eng
+        release()
+    emit("serve_tenants", arch=ARCH, layers=model.cfg.n_layers, policy=policy.describe(),
+         slots=4, adapt_every=2, slo=TENANT_SLO,
+         tenants={t.name: {"priority": t.priority, "share": t.share, "accuracy": t.accuracy}
+                  for t in TENANTS},
+         launches=counts, build_count=build.BUILD_COUNT, captured_tokens_equal_eager=True,
+         probe_err_gap_captured_eager=err_gap, **main, **eager, conditioned=cond,
+         traced={"tokens_equal_untraced": True, "launches_per_replay_equal": True,
+                 "walls_s": walls, "wall_ratio_of_medians": (
+                     statistics.median(walls["traced"]) / statistics.median(walls["untraced"])),
+                 **traced})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -1663,7 +2032,8 @@ def main() -> int:
         phase_serve_planned(params_cache, args.layers)
     if "tune" in phases:
         phase_tune(params_cache)
-    for name, fn in (("serve_spec", phase_serve_spec), ("serve_paged", phase_serve_paged)):
+    for name, fn in (("serve_spec", phase_serve_spec), ("serve_paged", phase_serve_paged),
+                     ("serve_tenants", phase_serve_tenants)):
         if name in phases:
             for kname, c in fn(params_cache).items():
                 if kname in main_counts:

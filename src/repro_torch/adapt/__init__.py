@@ -13,11 +13,13 @@ run time" — as a feedback loop over the RMPM engine:
     controller.py      SLO + dual-threshold hysteresis controller
     pages.py           precision tiers of paged KV memory: the keep-bits
                        ladder policy and its controller
+    workload.py        the synthetic ill-conditioned serving workload that
+                       exercises the loop end to end (imported as
+                       ``repro_torch.adapt.workload``: it builds a model)
 
 ``ServeEngine(config=ServeConfig(adapt=AdaptConfig(slo=...)))`` closes the
 loop; ``CacheConfig(tier_policy=PageTierPolicy(...))`` tiers cold KV pages.
-The synthetic workload and the training schedule of the reference are not
-ported yet.
+The training schedule of the reference is not ported yet.
 """
 from repro_torch.adapt.controller import SLO, HysteresisController  # noqa: F401
 from repro_torch.adapt.pages import HOT, PageTierController, PageTierPolicy  # noqa: F401

@@ -24,10 +24,10 @@ from a page-table KV cache (``--page-size``, ``--pool-pages``, prefix
 sharing unless ``--no-prefix-sharing``); ``--tier-levels 5,3`` adds
 precision-tiered pages (``--tier-cold-after``, ``--tier-every``,
 ``--tier-budget``), demoted by the quantize_mantissa kernel.
-
-Flags of features that are not ported yet (``--trace-out``,
-``--multi-tenant`` together with ``--adapt``) are accepted by the parser and
-refused with a NotImplementedError naming the ROADMAP item.
+``--multi-tenant`` serves a canned interactive-vs-bulk tenant mix; with
+``--adapt`` each tenant gets its own mode table and controller.
+``--trace`` records structured events (repro_torch.obs) and prints the
+precision timeline; ``--trace-out PATH`` also writes a Chrome trace.
 """
 from __future__ import annotations
 
@@ -138,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", action="store_true",
                     help="record structured trace events (repro_torch.obs)")
     ap.add_argument("--trace-out", default="",
-                    help="Chrome-trace export (not ported yet)")
+                    help="write the trace as Chrome-trace/Perfetto JSON to "
+                         "this path (implies --trace)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -195,6 +196,12 @@ def main(argv: list[str] | None = None) -> None:
     print(f"{total} tokens in {dt:.2f}s ({total/dt:.1f} tok/s on {model.device}; "
           f"kv={cfg.kv_cache_dtype}; slots={eng.config.batch_slots})")
     print(eng.metrics.format_summary())
+    if eng.tracer.enabled:
+        print(f"precision timeline:\n{eng.tracer.format_timeline()}")
+        if args.trace_out:
+            doc = eng.tracer.export_chrome(args.trace_out)
+            print(f"trace: {len(doc['traceEvents'])} Chrome events "
+                  f"-> {args.trace_out}")
 
 
 if __name__ == "__main__":

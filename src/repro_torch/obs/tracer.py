@@ -22,9 +22,8 @@ Event taxonomy (DESIGN.md section Observability):
               preempt_plan, admit_defer, admit_refuse, page_evict, cow_fork,
               prefix_share — every reconfiguration with its *cause*.
 
-The exporters of the reference (Chrome trace, Prometheus text, the
-precision timeline) are not ported yet: their methods raise
-NotImplementedError naming the ROADMAP item.
+Exporters (Chrome trace, Prometheus text, the precision timeline) read the
+ring after the run; see repro_torch.obs.export / repro_torch.obs.timeline.
 """
 from __future__ import annotations
 
@@ -102,27 +101,37 @@ class Tracer:
     def set_gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
 
-    # -- exporters: not ported yet (ROADMAP Queue A item 10) -------------------
-
-    def _exporters_not_ported(self):
-        raise NotImplementedError(
-            "trace exporters (Chrome trace, Prometheus, precision timeline) "
-            "are not ported yet: ROADMAP Queue A item 10 (Observability)")
+    # -- exporters (repro_torch.obs.export / repro_torch.obs.timeline) -------
 
     def chrome(self) -> dict:
-        self._exporters_not_ported()
+        """The trace as a Chrome-trace/Perfetto ``traceEvents`` document."""
+        from repro_torch.obs.export import to_chrome
+
+        return to_chrome(list(self.events), self.counters, self.gauges)
 
     def export_chrome(self, path: str) -> dict:
-        self._exporters_not_ported()
+        """Write the Chrome-trace JSON to ``path``; returns the document."""
+        from repro_torch.obs.export import write_chrome
+
+        return write_chrome(path, list(self.events), self.counters,
+                            self.gauges)
 
     def prometheus(self) -> str:
-        self._exporters_not_ported()
+        """Prometheus text exposition of the counter/gauge registry."""
+        from repro_torch.obs.export import to_prometheus
+
+        return to_prometheus(self.counters, self.gauges)
 
     def precision_timeline(self) -> list[dict]:
-        self._exporters_not_ported()
+        """Aligned per-step precision view (repro_torch.obs.timeline)."""
+        from repro_torch.obs.timeline import precision_timeline
+
+        return precision_timeline(list(self.events))
 
     def format_timeline(self) -> str:
-        self._exporters_not_ported()
+        from repro_torch.obs.timeline import format_timeline
+
+        return format_timeline(self.precision_timeline())
 
     def describe(self) -> str:
         kinds: dict[str, int] = {}

@@ -18,8 +18,8 @@
 construction path.  ``AdaptConfig(slo=...)`` closes the runtime-precision
 loop (repro_torch.adapt); ``spec=SpecConfig(...)`` decodes self-speculatively
 (repro_torch.spec); ``cache=CacheConfig(layout="paged")`` serves from page
-pools.  Per-tenant adaptation and trace export are not ported yet and raise
-NotImplementedError.
+pools; ``tenants=`` with ``slo=`` gives each tenant its own mode table and
+controller; ``trace=TraceConfig(...)`` records events (repro_torch.obs).
 """
 from repro_torch.serve.config import (  # noqa: F401
     AdaptConfig,

@@ -12,10 +12,8 @@ subsystems.  This module groups them:
 ``ServeEngine(model, params, config=cfg)`` is the documented construction
 path; the legacy flat kwargs remain as a deprecation shim that calls
 :meth:`ServeConfig.from_kwargs`, and ``launch/serve.py`` builds its config
-via :meth:`ServeConfig.from_flags`.  Trace export is not ported yet:
-``from_flags`` refuses ``--trace-out`` with the ROADMAP item.  Everything is
-frozen: a config is a value, shareable across engines and safe to put in
-test parametrizations.
+via :meth:`ServeConfig.from_flags`.  Everything is frozen: a config is a
+value, shareable across engines and safe to put in test parametrizations.
 """
 from __future__ import annotations
 
@@ -179,14 +177,10 @@ class ServeConfig:
             prefix_sharing=not getattr(args, "no_prefix_sharing", False),
         )
         trace = None
-        if getattr(args, "trace_out", ""):
-            raise NotImplementedError(
-                "--trace-out: trace exporters are not ported yet (ROADMAP "
-                "Queue A item 10, 'Observability')")
-        if getattr(args, "trace", False):
+        if getattr(args, "trace", False) or getattr(args, "trace_out", ""):
             from repro_torch.obs import TraceConfig
 
-            trace = TraceConfig()
+            trace = TraceConfig(out=getattr(args, "trace_out", "") or None)
         slots = args.slots or max(args.requests, 1)
         return cls(
             batch_slots=slots,

@@ -58,8 +58,17 @@ victim when the pool runs dry; after it, page statistics and, every
 A step writes the pools in place, so they are left out of the per-row merge
 and the copy-back; the probe's step reads them without writing.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-per-tenant adaptation (``tenants=`` with ``slo=``).
+With ``tenants=`` and ``slo=`` each tenant owns a mode table and a
+controller; the modal step binds, site by site, the most precise mode
+among the tables of tenants with active slots (``_bound_scalars``) —
+written into the step's device view, so the captured step and probe serve
+every combination of tables — and each tenant's probe is masked to its
+own slots.
+
+With ``trace=`` the engine records typed events (repro_torch.obs) and a
+``PhaseProfiler`` times prefill, decode and speculative rounds and
+watches the capture and build counts for recompiles.  Every emit site is
+host code between replays, never inside a captured body.
 """
 from __future__ import annotations
 
@@ -70,7 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import LanguageModel, copy_state_, map_state
-from repro_torch.obs import NULL_TRACER, TraceConfig, Tracer
+from repro_torch.obs import NULL_TRACER, PhaseProfiler, TraceConfig, Tracer
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.paged import batch_leaves, make_layout, restore_pools, save_pools
@@ -114,10 +123,6 @@ def row_select(ax: int, new, old, active):
     shape = [1] * new.dim()
     shape[ax] = active.shape[0]
     return torch.where(active.reshape(shape), new, old)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class ServeEngine:
@@ -197,11 +202,6 @@ class ServeEngine:
                 "ServeEngine only implements greedy decoding: temperature "
                 "sampling is not wired into the masked step / prefill. "
                 "Pass greedy=True.")
-        if slo is not None and sch.tenants is not None:
-            # per-tenant tables would also need per-slot mode binding inside
-            # the speculative round; with speculate= this raises all the same
-            raise _not_ported("per-tenant adaptation (tenants= with slo=)",
-                            "Queue A item 9, 'Multi-tenant engine paths'")
         self.device = model.device
         # metrics first: its plan-cache snapshot must predate phase planning
         # so plan_cache_delta() counts the plans this engine triggers
@@ -211,6 +211,7 @@ class ServeEngine:
                                  else None)
         else:
             self.tracer = NULL_TRACER
+        self.profiler = PhaseProfiler(self.tracer)
         if accuracy is not None:
             # Per-phase planning: decode GEMMs see M = batch_slots at a
             # tightened budget, prefill GEMMs see M = prompt tokens at the
@@ -276,16 +277,45 @@ class ServeEngine:
             self._static_decode_label = self.phase_plans["decode"]["mlp_up"].mode.name
         else:
             self._static_decode_label = model.cfg.policy.default.name
+        #: per-tenant adaptation (tenants= with slo=): each tenant owns a
+        #: private ModeTable + controller; the modal step binds the per-site
+        #: max across tenants with active slots (``_bound_scalars``), so a
+        #: tenant needing precision always gets at least its own table's
+        #: modes — isolation with one captured step
+        self.tenant_tables: dict[str, object] = {}
+        self.tenant_ctrl: dict[str, object] = {}
+        self._per_tenant_adapt = slo is not None and sch.tenants is not None
         if slo is not None:
-            from repro_torch.adapt import HysteresisController, ModeTable
+            from repro_torch.adapt import SLO, HysteresisController, ModeTable
 
-            if self.phase_plans:
-                self.mode_table = ModeTable.from_plans(self.phase_plans["decode"])
+            def make_table():
+                if self.phase_plans:
+                    return ModeTable.from_plans(self.phase_plans["decode"])
+                return ModeTable.from_policy(model.cfg.policy)
+
+            if self._per_tenant_adapt:
+                if cfg.adapt.controller is not None:
+                    raise ValueError(
+                        "controller= is a single shared instance; with "
+                        "tenants= each tenant gets its own controller — "
+                        "set per-tenant budgets via Tenant.accuracy instead")
+                for name, ten in self.scheduler.tenants.items():
+                    t_slo = SLO(
+                        max_err=(ten.accuracy if ten.accuracy is not None
+                                 else slo.max_err),
+                        target_ms=slo.target_ms,
+                        down_factor=slo.down_factor)
+                    self.tenant_tables[name] = make_table()
+                    ctrl = HysteresisController(t_slo)
+                    ctrl.tracer, ctrl.name = self.tracer, f"adapt/{name}"
+                    self.tenant_ctrl[name] = ctrl
+                self.mode_table = None
+                self.controller = None
             else:
-                self.mode_table = ModeTable.from_policy(model.cfg.policy)
-            self.controller = cfg.adapt.controller or HysteresisController(slo)
-            self.controller.tracer = self.tracer
-            self.controller.name = "adapt"
+                self.mode_table = make_table()
+                self.controller = cfg.adapt.controller or HysteresisController(slo)
+                self.controller.tracer = self.tracer
+                self.controller.name = "adapt"
             self.adapt_every = max(int(cfg.adapt.adapt_every), 1)
         else:
             self.mode_table = None
@@ -309,6 +339,16 @@ class ServeEngine:
         if not isinstance(spec, SpecConfig):
             raise TypeError(
                 f"speculate must be a repro_torch.spec.SpecConfig, got {type(spec)}")
+        if self.tenant_tables:
+            # the speculative round binds ONE draft/verify table pair per
+            # round; per-tenant tables would need per-slot mode binding
+            # inside the round — not built, so refuse rather than verify
+            # tenant A under tenant B's modes
+            raise NotImplementedError(
+                "speculate= with per-tenant adaptation (tenants= and slo=) "
+                "is not supported: the spec round verifies under one mode "
+                "table. Drop slo= (static speculation works with tenants=) "
+                "or drop speculate=.")
         self.spec = spec
         if self.mode_table is not None:
             self._spec_table = self.mode_table  # adaptive verify (slo path)
@@ -348,15 +388,24 @@ class ServeEngine:
             self._round_graph = CompiledStep(
                 self._spec_round_body, dev, name="spec_round", snapshot=snap)
         elif self.slo is not None:
-            self._step_modes = self.mode_table.device_view(dev)
+            self._step_modes = self._site_table.device_view(dev)
             self._step_graph = CompiledStep(
                 self._modal_step_body, dev, name="masked_step_modal", snapshot=snap)
         else:
             self._step_graph = CompiledStep(
                 self._plain_step_body, dev, name="masked_step", snapshot=snap)
         if self.slo is not None:
-            self._probe_modes = self.mode_table.device_view(dev)
+            self._probe_modes = self._site_table.device_view(dev)
             self._probe_graph = CompiledStep(self._probe_body, dev, name="probe")
+
+    @property
+    def _site_table(self):
+        """A table over the adapted sites: the shared one, or under
+        per-tenant adaptation any tenant's (every table is made from the
+        same plans, so all have the same sites)."""
+        if self.mode_table is not None:
+            return self.mode_table
+        return next(iter(self.tenant_tables.values()))
 
     def _snapshot(self, n: int):
         """Save what ``n`` decode steps overwrite in the static state — the
@@ -506,7 +555,10 @@ class ServeEngine:
             if (self.slo is not None
                     and self.metrics.decode_steps % self.adapt_every == 0
                     and self._active.any()):
-                self._adapt_tick()
+                if self._per_tenant_adapt:
+                    self._adapt_tick_tenants()
+                else:
+                    self._adapt_tick()
             self._page_tick()
         return events
 
@@ -618,6 +670,29 @@ class ServeEngine:
             counts[name] = counts.get(name, 0) + 1
         return counts
 
+    def _bound_scalars(self, tenant_active: dict[str, int]):
+        """(modes, label) to bind this step under per-tenant adaptation:
+        the per-site *maximum* (most precise) mode across the tables of
+        tenants with active slots, as host ints for the step's device view.
+        Each tenant therefore always runs at least as precisely as its own
+        table demands — its controller can only see errors at or below what
+        it asked for — while tables stay isolated (a hot tenant shifting up
+        never mutates a cold tenant's table, and costs the cold tenant
+        nothing once the hot tenant's slots drain)."""
+        names = [n for n in tenant_active if n in self.tenant_tables]
+        if not names:  # no active slots: probe-only callers, bind any table
+            names = list(self.tenant_tables)
+        combined: dict[str, object] = {}
+        for n in names:
+            for site, m in self.tenant_tables[n].modes().items():
+                cur = combined.get(site)
+                if cur is None or int(m) > int(cur):
+                    combined[site] = m
+        label_names = sorted({m.name for m in combined.values()})
+        label = (label_names[0] if len(label_names) == 1
+                 else "/".join(label_names))
+        return {s: int(m) for s, m in combined.items()}, label
+
     def _device_inputs(self):
         """Write the host slot mirrors into the static inputs and return them
         (``tokens`` (B, 1) int32, ``active`` (B,) bool).  The copies are
@@ -636,8 +711,11 @@ class ServeEngine:
         tenant_active = self._tenant_active()
         t0 = time.perf_counter()
         if self.slo is not None:
-            label = self.mode_table.label()
-            self._step_modes.write(self.mode_table.scalars())
+            if self._per_tenant_adapt:
+                scalars, label = self._bound_scalars(tenant_active)
+            else:
+                scalars, label = self.mode_table.scalars(), self.mode_table.label()
+            self._step_modes.write(scalars)  # skipped when nothing changed
         else:
             label = self._static_decode_label
         produced = self._step_graph().cpu().numpy()  # syncs the step
@@ -649,6 +727,9 @@ class ServeEngine:
             self.tracer.emit("decode_step", dur_ms=self._last_step_ms,
                              n_active=n_active, mode=label)
             self.tracer.set_gauge("active_slots", n_active)
+            self.profiler.record("decode", self._last_step_ms / 1e3,
+                                 tokens=n_active)
+            self.profiler.observe_cache("decode_step", self._step_graph.captures)
         for slot in np.nonzero(self._active)[0]:
             ticket = self.scheduler.by_slot[int(slot)]
             tok = int(produced[slot])
@@ -708,6 +789,9 @@ class ServeEngine:
             trace_round(self.tracer, k=k, n_active=n_active, agreed=agreed,
                         emitted=emitted, dur_ms=self._last_step_ms)
             self.tracer.set_gauge("active_slots", n_active)
+            self.profiler.record("spec", self._last_step_ms / 1e3,
+                                 tokens=emitted)
+            self.profiler.observe_cache("spec_round", self._round_graph.captures)
         self._spec_window[0] += k * n_active
         self._spec_window[1] += agreed
         if (self._accept_ctrl is not None
@@ -745,13 +829,14 @@ class ServeEngine:
             return self._accept_ctrl.shift
         return self._draft_shift
 
-    def _probe_fn(self, cur, ref, down) -> tuple[float, float]:
+    def _probe_fn(self, cur, ref, down, mask=None) -> tuple[float, float]:
         """Shadow-forward error probe: the decode step replayed at the
         current, max-mode-reference and one-mode-down host tables (same
         kernels, different modes; state read, never written) — three
         replays of the compiled probe, its device view rewritten between
-        them.  Returns (err_current, err_one_down), the normalized logit
-        residuals over active slots, read back with one sync."""
+        them; every row runs.  Returns (err_current, err_one_down), the
+        normalized logit residuals over the rows of the (B,) bool device
+        tensor ``mask`` (None: the active rows), read back with one sync."""
         from repro_torch.adapt import logit_residual
 
         logits = []
@@ -759,40 +844,68 @@ class ServeEngine:
             self._probe_modes.write(modes)
             logits.append(self._probe_graph().clone())  # the next replay reuses it
         l_cur, l_ref, l_down = logits
-        errs = torch.stack([logit_residual(l_cur, l_ref, self._active_dev),
-                            logit_residual(l_down, l_ref, self._active_dev)])
+        if mask is None:
+            mask = self._active_dev
+        errs = torch.stack([logit_residual(l_cur, l_ref, mask),
+                            logit_residual(l_down, l_ref, mask)])
         err_cur, err_down = errs.cpu().tolist()
         return err_cur, err_down
 
     def _adapt_tick(self) -> None:
         """One probe + controller observation; applies the shift when
         adaptation is enabled (monitor-only engines record but hold)."""
-        table = self.mode_table
-        ladder = int(table.max_mode) - int(table.min_mode)
         self._device_inputs()
+        self._probe_and_shift(self.mode_table, self.controller, self._active_dev)
+
+    def _adapt_tick_tenants(self) -> None:
+        """One probe + controller observation *per tenant with active
+        slots*, each against that tenant's own table and masked to that
+        tenant's slots (the probe's forward runs every row, as the
+        reference's does; the mask reaches only the residual, never the
+        decode step's ``active``).  Isolation invariant: tenant A's
+        residuals never reach tenant B's controller, so a hot workload
+        shifting A's table up leaves B's table exactly where B's own
+        traffic put it."""
+        self._device_inputs()
+        for name, table in self.tenant_tables.items():
+            mask = np.zeros_like(self._active)
+            for slot, t in self.scheduler.by_slot.items():
+                if t.tenant == name and self._active[slot]:
+                    mask[slot] = True
+            if mask.any():
+                self._probe_and_shift(table, self.tenant_ctrl[name],
+                                      torch.from_numpy(mask).to(self.device), tenant=name)
+
+    def _probe_and_shift(self, table, ctrl, mask, tenant: str | None = None) -> None:
+        """Probe ``table``'s modes over the rows of ``mask``, feed ``ctrl``
+        and, when adapting, shift the table as it decides."""
+        ladder = int(table.max_mode) - int(table.min_mode)
         err_cur, err_down = self._probe_fn(
             table.scalars(),
             table.scalars_shifted(ladder),  # clamps every site to max: ref
             table.scalars_shifted(-1),
+            mask,
         )
         err_cur, err_down = float(err_cur), float(err_down)
         self.metrics.on_probe(err_cur)
         step_ms = self._last_step_ms
         if step_ms is not None:
             step_ms /= max(self._last_step_tokens, 1.0)
-        decision = self.controller.observe(
+        decision = ctrl.observe(
             self.metrics.decode_steps, err_cur, err_down,
             step_ms=step_ms,
             can_up=not table.at_max, can_down=not table.at_min)
-        if self._adapt and decision:
-            if table.shift_all(decision, tag=self.metrics.decode_steps):
-                self.metrics.on_mode_switch()
-                if self.tracer.enabled:
-                    self.tracer.emit(
-                        "mode_switch", cause=self.controller.last_cause,
-                        direction=decision, mode=table.label(),
-                        sites={s: m.name for s, m in table.modes().items()})
-                    self.tracer.inc("mode_switches")
+        if not (self._adapt and decision
+                and table.shift_all(decision, tag=self.metrics.decode_steps)):
+            return
+        self.metrics.on_mode_switch()
+        if self.tracer.enabled:
+            who = {} if tenant is None else {"tenant": tenant}
+            self.tracer.emit(
+                "mode_switch", cause=ctrl.last_cause, direction=decision,
+                **who, mode=table.label(),
+                sites={s: m.name for s, m in table.modes().items()})
+            self.tracer.inc("mode_switches")
 
     def drain(self) -> dict[int, list[int]]:
         """Step until queue and slots are empty; returns rid -> tokens for
@@ -819,6 +932,9 @@ class ServeEngine:
             self.tracer.emit("prefill", rid=ticket.rid, slot=slot,
                              dur_ms=dur_s * 1e3,
                              prompt_len=len(ticket.prompt))
+            self.profiler.record("prefill", dur_s,
+                                 tokens=len(ticket.prompt))
+            self.profiler.observe_cache("prefill", self.kernel_build_count)
         return first
 
     def _emit(self, ticket: Ticket, slot: int, tok: int) -> None:
@@ -845,8 +961,8 @@ class ServeEngine:
 
     def describe(self) -> dict[str, str]:
         """The consolidated reporting surface: one dict with every
-        subsystem's description (plans / adaptation / tenancy / cache —
-        plus tracing when it is on)."""
+        subsystem's description (plans / adaptation / speculation / tenancy
+        / cache — plus tracing/profiling when tracing is on)."""
         out = {
             "plans": self._describe_plans(),
             "adaptation": self._describe_adaptation(),
@@ -856,6 +972,7 @@ class ServeEngine:
         }
         if self.tracer.enabled:
             out["trace"] = self.tracer.describe()
+            out["profile"] = self.profiler.describe()
         return out
 
     def format_describe(self) -> str:
@@ -951,6 +1068,16 @@ class ServeEngine:
         return head + ("\n" + body if body else "")
 
     def _describe_adaptation(self) -> str:
+        if self.tenant_tables:
+            lines = []
+            for name in sorted(self.tenant_tables):
+                table = self.tenant_tables[name]
+                ctrl = self.tenant_ctrl[name]
+                lines.append(
+                    f"tenant {name}: table {table.describe()} | "
+                    f"{table.switches} switches ({ctrl.up_shifts} up / "
+                    f"{ctrl.down_shifts} down)")
+            return "per-tenant adaptation\n" + "\n".join(lines)
         if self.mode_table is None:
             return "adaptation off (no slo)"
         s = self.metrics.summary()

@@ -9,6 +9,7 @@ only where the reference's top-2 logit margin exceeds the logit tolerance of
 compared up to its first undecided token (after it the two streams may
 legitimately condition on different tokens)."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -422,7 +423,7 @@ def test_engine_tokens_vs_reference_engine(policy_name, kv_dtype):
 
 
 # ---------------------------------------------------------------------------
-# what waits for later work raises, naming its ROADMAP item
+# options that once waited for later work, and what still raises
 # ---------------------------------------------------------------------------
 
 
@@ -430,10 +431,13 @@ class TestNotPortedYet:
     def test_engine_options(self, tiny):
         model, params = tiny
         base = dict(batch_slots=2, max_len=16)
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            ServeEngine(model, params, config=ServeConfig(
-                adapt=AdaptConfig(slo=SLO(max_err=0.1)),
-                scheduling=SchedulingConfig(tenants=[Tenant("a")]), **base))
+        # per-tenant adaptation is ported: one table and controller a tenant
+        # (tests/test_torch_tenancy.py serves it)
+        eng = ServeEngine(model, params, config=ServeConfig(
+            adapt=AdaptConfig(slo=SLO(max_err=0.1)),
+            scheduling=SchedulingConfig(tenants=[Tenant("a")]), **base))
+        assert eng.mode_table is None and set(eng.tenant_tables) == {"a", "default"}
+        assert eng.tenant_ctrl["a"].slo.max_err == 0.1
         # the paged cache is ported: tests/test_torch_paged_engine.py serves it
         for spec in (None, SpecConfig()):
             eng = ServeEngine(model, params, config=ServeConfig(
@@ -444,14 +448,27 @@ class TestNotPortedYet:
         with pytest.raises(ValueError, match="not both"):
             ServeEngine(model, params, batch_slots=2, config=ServeConfig(**base))
 
-    @pytest.mark.parametrize("flags,match", [
-        (["--trace-out", "t.json"], "Queue A item 10"),
-        (["--multi-tenant", "--adapt"], "Queue A item 9"),
+    # the two flags the launcher once refused (the case ids are those of the
+    # refusals); each now runs and prints what replaced the refusal
+    @pytest.mark.parametrize("flags,expect", [
+        pytest.param(["--trace-out", "t.json"], "Chrome events ->",
+                     id="flags0-Queue A item 10"),
+        pytest.param(["--multi-tenant", "--adapt"], "per-tenant adaptation\ntenant bulk: table",
+                     id="flags1-Queue A item 9"),
     ])
-    def test_launcher_flags_are_parsed_and_refused(self, flags, match):
-        with pytest.raises(NotImplementedError, match=match):
-            launch_serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
-                               "--requests", "1", *flags])
+    def test_launcher_flags_are_parsed_and_refused(self, flags, expect, tmp_path, monkeypatch,
+                                                   capsys):
+        monkeypatch.chdir(tmp_path)
+        launch_serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+                           "--requests", "2", "--max-new", "4", *flags])
+        out = capsys.readouterr().out
+        assert expect in out
+        if "--trace-out" in flags:
+            from repro_torch.obs import validate_chrome
+
+            doc = json.loads((tmp_path / "t.json").read_text())
+            assert validate_chrome(doc) == [] and doc["traceEvents"]
+            assert "precision timeline:" in out and "-- profile --" in out
 
     def test_other_archs_and_families(self):
         with pytest.raises(SystemExit):

@@ -250,7 +250,9 @@ class TestMechanics:
         base = dict(batch_slots=2, max_len=16)
         with pytest.raises(TypeError, match="SpecConfig"):
             ServeEngine(model, params, config=ServeConfig(spec={"k": 2}, **base))
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        # per-tenant tables would need per-slot modes inside the round: the
+        # reference's own refusal
+        with pytest.raises(NotImplementedError, match="per-tenant"):
             ServeEngine(model, params, config=ServeConfig(
                 spec=SpecConfig(), adapt=AdaptConfig(slo=SLO(max_err=0.1)),
                 scheduling=SchedulingConfig(tenants=[Tenant("a")]), **base))
