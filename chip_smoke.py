@@ -18,7 +18,11 @@ paged KV cache (prefix sharing, page-pressure parking, precision-tiered
 pages through the quantize kernel) beside the dense cache, and serves two
 tenants with mode tables of their own (per-tenant adaptation through the
 mode-map kernel), the conditioned hot/cold workload and a traced run
-(Chrome trace, profiler), checking what comes out.  The engine runs its
+(Chrome trace, profiler), then the recurrent families: ``mamba2-2.7b`` at
+full width and depth (``serve_ssm``) and ``recurrentgemma-9b`` at full
+width and depth, with its speculative, paged and ring-wrap arms at cut
+depths (``serve_hybrid``), checking what comes out.  The limb and mode-map
+kernels are also held and timed at the hybrid's GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
 ``serve_spec`` and ``serve_tenants`` also serve eagerly (``graphs.eager()``)
@@ -31,13 +35,15 @@ prints any result.
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
 ``tune``, ``serve_spec``, ``serve_paged`` and ``serve_tenants`` phases
-always run at full depth).
+always run at full depth, and ``serve_ssm`` and ``serve_hybrid`` at the
+depths their docstrings give).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -46,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -135,7 +142,22 @@ DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + 
 #: of 16 tokens + the scratch page, 16 KV heads of 64
 PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
-          "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants")
+          "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
+          "serve_ssm", "serve_hybrid")
+#: the recurrent families' models (full width; see their phases for depth)
+SSM_ARCH = "mamba2-2.7b"
+HYBRID_ARCH = "recurrentgemma-9b"
+#: (K, N) of the hybrid's weight GEMMs through pmm (M = 4 decode, 48
+#: prefill): wq / wo, wk / wv (MQA: one KV head of 256), the MLP's gate / up,
+#: its down
+HYBRID_KN = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
+#: depth cuts of the hybrid phase's arms: the speculative and paged arms run
+#: two (rec, rec, attn_local) supergroups and the two remainder layers; the
+#: ring-wrap part one supergroup, over a shared prompt prefix of
+#: HYBRID_WRAP_PREFIX tokens that decoding carries across the 2048 window
+HYBRID_CUT_LAYERS = 8
+HYBRID_WRAP_LAYERS = 3
+HYBRID_WRAP_PREFIX = 2032
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -310,7 +332,7 @@ def check_kernels(gen) -> dict:
     worst = {"quantize_mantissa": 0.0, "limb_matmul": 0.0, "tile_matmul": 0.0}
     worst_abs = dict(worst)
     n_cases = 0
-    shapes = [(m, k, n) for m in MAIN_M for (k, n) in MAIN_KN] + [(17, 33, 9)]
+    shapes = [(m, k, n) for m in MAIN_M for (k, n) in MAIN_KN + HYBRID_KN] + [(17, 33, 9)]
     splits = {}
     unsplit_vs_split = 0.0
 
@@ -345,7 +367,7 @@ def check_kernels(gen) -> dict:
         grid, (bm, bn, bk) = tile_grid(m, n, k, **blk)
         s = planned_splits(m, k, n, **blk)
         splits[f"{m}x{k}x{n}" + (f" {blk}" if blk else "")] = s
-        if m == MAIN_M[0] and not blk:
+        if m == MAIN_M[0] and not blk and (k, n) in MAIN_KN:
             check(s > 1, f"no K split at the decode shape {(m, k, n)}")
         if blk.get("bk") == 720:
             walk = k_walk(k, bk, k_step(3))
@@ -634,6 +656,7 @@ def time_kernels(gen) -> dict:
                                      ms_splits1=ms1, enqueue_ms_splits1=enqueue1,
                                      plain_ms=p_ms, **common))
             del bs, bs16
+    rows += time_hybrid_kernels(gen)
     # quantize pre-pass shapes: the activation and the weight of a site
     for shape in ((4, 1024), (1024, 2816)):
         nbytes = 4 * shape[0] * shape[1]
@@ -655,6 +678,40 @@ def time_kernels(gen) -> dict:
     return {"rows": rows,
             "f32_matmul_4096": {"ms": f32_ms, "flop_per_s": f32_rate,
                                 "datasheet_flop_per_s": F32_FLOPS}}
+
+
+def time_hybrid_kernels(gen) -> list[dict]:
+    """The limb and mode-map kernels at the hybrid's GEMM shapes (M = 4 and
+    48 by HYBRID_KN, k = 2 and 3, the planned K split), beside the bound,
+    the plain version and one f32 ``torch.matmul``; fewer samples than the
+    main shapes' (no unsplit run)."""
+    rows = []
+    timed = functools.partial(time_ms, warmup=2, reps=5, samples=3)
+    for m in MAIN_M:
+        for (k, n) in HYBRID_KN:
+            a = _rand(gen, m, k)
+            n_rot = n_rotations(4 * k * n)
+            bs = [_rand(gen, k, n) for _ in range(n_rot)]
+            grid, (bm, bn, bk) = tile_grid(m, n, k)
+            lib32, _ = timed(lambda i: torch.matmul(a, bs[i]), n_rot)
+            for limbs in (2, 3):
+                bound, by = gemm_bound_ms(m, k, n, len(limb_product_terms(limbs)))
+                s = planned_splits(m, k, n, limbs)
+                uniform = torch.full(grid[:2], limbs, dtype=torch.int32, device="cuda")
+                plain, _ = timed(lambda i: limb_matmul_plain(a, bs[i], limbs, bk=bk, splits=s),
+                                 n_rot)
+                tile_plain, _ = timed(lambda i: tile_matmul_plain(
+                    a, bs[i], uniform, kmax=3, bm=bm, bn=bn, bk=bk, splits=s), n_rot)
+                for kernel, fn, p_ms in (
+                        ("limb_matmul", lambda i: limb_matmul(a, bs[i], limbs), plain),
+                        ("tile_matmul", lambda i: tile_matmul(a, bs[i], uniform), tile_plain)):
+                    ms, enqueue = timed(fn, n_rot)
+                    rows.append(dict(kernel=kernel, via=kernel, hybrid=True, m=m, k=k, n=n,
+                                     limbs=limbs, splits=s, ms=ms, enqueue_ms=enqueue,
+                                     plain_ms=p_ms, bound_ms=bound, bound_by=by,
+                                     library_ms=lib32, library_bf16_ms=None))
+            del bs
+    return rows
 
 
 def phase_kernels(gen) -> tuple[dict, dict]:
@@ -685,8 +742,8 @@ def phase_kernels(gen) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def full_width_model(policy: PrecisionPolicy, n_layers: int | None = None):
-    cfg = get_config(ARCH).with_policy(policy)
+def full_width_model(policy: PrecisionPolicy, n_layers: int | None = None, arch: str = ARCH):
+    cfg = get_config(arch).with_policy(policy)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return build_model(cfg)  # device=None: the GPU, or raise
@@ -695,17 +752,41 @@ def full_width_model(policy: PrecisionPolicy, n_layers: int | None = None):
 def time_prefills(eng) -> None:
     """Sum the host wall time of the engine's prefills (each ends in a
     sync) into ``eng.prefill_s``, so a phase can say what share of its wall
-    time the eager prefill takes."""
+    time the eager prefill takes.  The hook holds the engine weakly, so it
+    adds no reference cycle: a dropped engine is freed at once."""
     eng.prefill_s = 0.0
-    prefill = eng._prefill_slot
+    prefill = type(eng)._prefill_slot
+    ref = weakref.ref(eng)
 
     def timed(*args):
+        e = ref()
         t0 = time.perf_counter()
-        first = prefill(*args)
-        eng.prefill_s += time.perf_counter() - t0
+        first = prefill(e, *args)
+        e.prefill_s += time.perf_counter() - t0
         return first
 
     eng._prefill_slot = timed
+
+
+def retire(holder: dict, key) -> dict:
+    """Drop the engine ``holder[key]`` (its last reference) and measure what
+    that frees: with the cycle collector off, the engine must die at once,
+    and with it its graphs' memory pool (``repro_torch.serve.graphs``);
+    ``empty_cache`` then hands the pool's memory back to the card.  Returns
+    the reserved and allocated memory freed (GB)."""
+    torch.cuda.synchronize()
+    reserved0, alloc0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        ref = weakref.ref(holder.pop(key))
+        alive = ref() is not None
+    finally:
+        gc.enable()
+    torch.cuda.empty_cache()
+    check(not alive, f"engine {key!r} outlived its last reference (a reference cycle)")
+    return {"reserved_freed_gb": (reserved0 - torch.cuda.memory_reserved()) / 1e9,
+            "allocated_freed_gb": (alloc0 - torch.cuda.memory_allocated()) / 1e9,
+            "reserved_after_gb": torch.cuda.memory_reserved() / 1e9}
 
 
 def serve(model, params, config: ServeConfig, reqs: list[Request], seed: int,
@@ -786,7 +867,7 @@ def replay_event_ms(fn, reps: int = 5) -> float:
 
 
 def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
-                   max_len: int = 96) -> dict:
+                   max_len: int = 96, bound_logits: bool = True) -> dict:
     """Where one decode step and one prefill spend their time.  The decode
     step is the engine's compiled step on a 4-slot engine whose rows hold
     24 cached tokens, run captured (one graph replay) and eagerly
@@ -798,7 +879,8 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
     (``splitk_reduce``) from the profiler, and the device time of the
     state's copy-back (the masked merge and ``copy_`` of every leaf that
     ends each step).  Beside it: one 48-token prefill (eager), the logits
-    site alone, and kernel launches per call."""
+    site alone (bound to a host int and to a device scalar, unless
+    ``bound_logits`` is false), and kernel launches per call."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     vocab, d = model.cfg.vocab, model.cfg.d_model
     prompt = torch.randint(0, vocab, (1, prompt_len), generator=gen, device="cuda")
@@ -858,7 +940,7 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
     # the logits site bound to a run-time mode: as a host int it runs the
     # mode's own products; as a device scalar (what a captured modal step
     # binds) it makes all six products of the ladder's top and selects
-    for mode in (Mode.M8, Mode.M16, Mode.M24):
+    for mode in (Mode.M8, Mode.M16, Mode.M24) if bound_logits else ():
         dev_mode = torch.tensor(int(mode), dtype=torch.int32, device="cuda")
         for label, bound in (("host_int", int(mode)), ("device_scalar", dev_mode)):
             def logits_at(i, bound=bound):
@@ -1318,7 +1400,7 @@ class StepTimer:
     step's."""
 
     def __init__(self, eng, profile_steps: int = 3):
-        self.eng = eng
+        self.eng = weakref.proxy(eng)  # no cycle: the engine holds the timer
         self.step = eng._step_graph
         self.records: list[tuple] = []
         self.profile_steps = profile_steps
@@ -1931,6 +2013,257 @@ def phase_serve_tenants(params_cache):
 
 
 # ---------------------------------------------------------------------------
+# the recurrent families: Mamba-2 (ssm) and RecurrentGemma (hybrid)
+# ---------------------------------------------------------------------------
+
+
+def served(model, params, config: ServeConfig, reqs: list[Request],
+           eager_run: bool = False) -> dict:
+    """Serve ``reqs`` on one engine through ``paged_run`` (captured, or
+    eager with ``eager_run``; dense or paged as ``config`` says), read it,
+    then retire it: the engine dies with its last reference, its graphs'
+    pool with it (``retire`` checks and measures that)."""
+    holder = {}
+    holder["eng"], outs, counts, wall, _ = paged_run(model, params, config, reqs,
+                                                     eager_run=eager_run)
+    eng = holder["eng"]
+    m = eng.metrics.summary()
+    out = {"outs": outs, "counts": counts, "summary": serve_summary(eng, outs, wall),
+           "captures": eng.graph_capture_count,
+           "pages": pages_summary(eng) if config.cache.layout == "paged" else None,
+           "acceptance": m.get("acceptance_rate"),
+           "verify_steps_per_token": m.get("verify_steps_per_token")}
+    del eng
+    out["freed"] = retire(holder, "eng")
+    return out
+
+
+def param_gb(params) -> float:
+    def walk(x):
+        return (sum(walk(v) for v in x.values()) if isinstance(x, dict)
+                else x.numel() * x.element_size())
+    return walk(params) / 1e9
+
+
+def prefill_vs_steps_gap(model, params, prompt: np.ndarray, max_len: int) -> float:
+    """The last prompt position's logits from one multi-token prefill
+    against feeding the prompt one token at a time (the chunked / scanned
+    forms against the per-token recurrences), over the logits' spread."""
+    toks = torch.as_tensor(np.asarray(prompt, np.int64)[None, :], device="cuda")
+    full, _ = model.decode_step(params, toks, model.init_decode_state(1, max_len, per_slot=True))
+    state = model.init_decode_state(1, max_len, per_slot=True)
+    for i in range(toks.shape[1]):
+        step, state = model.decode_step(params, toks[:, i:i + 1], state)
+    check(bool(torch.isfinite(full).all()) and bool(torch.isfinite(step).all()),
+          "non-finite logits")
+    return float((full[0, -1] - step[0, -1]).abs().max() / full[0, -1].std())
+
+
+def phase_serve_ssm(params_cache):
+    """Mamba-2 2.7b at full width and depth (64 layers, d_model 2560, 80 SSD
+    heads of 64, state 128) served at M16 ``pallas`` from 4 slots, 8 ragged
+    requests, captured and eager: equal tokens, equal to the 1-slot solo
+    decode, one capture, at most one build.  Its projections, SSD
+    contractions and logits are general einsums (plain limb algebra, as in
+    the reference), so none of the four kernels launches: the phase checks
+    that and says so.  Beside it the decode step's breakdown (replay by
+    CUDA events, kernel time, busy share, the recurrent state's copy-back
+    bytes) and a prefill against the per-token recurrence."""
+    release()
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    model = full_width_model(policy, arch=SSM_ARCH)
+    params = params_cache(model)
+    reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(20))
+    cfg = ServeConfig(batch_slots=4, max_len=96)
+    cap = served(model, params, cfg, reqs)
+    eag = served(model, params, cfg, reqs, eager_run=True)
+    check_same_tokens(eag["outs"], cap["outs"], "serve_ssm eager against captured")
+    for r in reqs[:2]:
+        check(solo_tokens(model, params, r, 96) == cap["outs"][r.rid],
+              f"serve_ssm request {r.rid}: batched tokens != solo decode")
+    check(cap["captures"] == 1, f"serve_ssm captured {cap['captures']} graphs")
+    check(build.BUILD_COUNT <= 1, f"build count {build.BUILD_COUNT} > 1")
+    check(not any(cap["counts"].values()) and not any(eag["counts"].values()),
+          f"serve_ssm launched a kernel: {cap['counts']} (its sites are general einsums)")
+    check(cap["freed"]["reserved_freed_gb"] > 0, "the captured engine's pool was not freed")
+    gap = prefill_vs_steps_gap(model, params, reqs[0].prompt[:32], 96)
+    check(gap < 1e-3, f"serve_ssm: chunked prefill vs per-token recurrence {gap:.3e}")
+    breakdown = step_breakdown(model, params)
+    c = model.cfg
+    emit("serve_ssm", arch=SSM_ARCH, layers=c.n_layers, d_model=c.d_model,
+         d_inner=c.ssm_expand * c.d_model, ssd_heads=c.ssm_expand * c.d_model // c.ssm_head_dim,
+         ssm_head_dim=c.ssm_head_dim, ssm_state=c.ssm_state, vocab=c.vocab,
+         param_gb=param_gb(params), policy=policy.describe(), launches=cap["counts"],
+         kernels_launched="none: every site of the family is a general einsum "
+                          "(mp_einsum sends only mk,kn->mn to the kernels, as the reference's)",
+         build_count=build.BUILD_COUNT, captured_tokens_equal_eager=True,
+         solo_equal_rids=[r.rid for r in reqs[:2]], prefill_vs_steps_gap_over_spread=gap,
+         captured=cap["summary"], eager=eag["summary"],
+         freed_between_engines={"captured": cap["freed"], "eager": eag["freed"]},
+         breakdown=breakdown)
+    return cap["counts"]
+
+
+def wrap_traffic(vocab: int, seed: int, n: int = 3) -> list[Request]:
+    """``n`` requests over one shared prompt prefix of HYBRID_WRAP_PREFIX
+    tokens, 8 tokens of their own each (2,040 in all, within the 2,048
+    window, so the prefix pages are shared) and 40 new tokens, which carry
+    every row across the window: the ring then writes back into the shared
+    prompt pages."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, HYBRID_WRAP_PREFIX)
+    return [Request(np.concatenate([prefix, rng.integers(0, vocab, 8)]).astype(np.int32), 40,
+                    rid=i) for i in range(n)]
+
+
+def phase_serve_hybrid(params_cache):
+    """RecurrentGemma-9b (12 (rec, rec, attn_local) supergroups + 2
+    remainder layers, d_model 4096, d_ff 12288, 16 heads of 256, MQA, vocab
+    256000 untied, window 2048), in four parts:
+
+    (a) full depth, M16 ``pallas``, 4 slots, 8 ragged requests, captured and
+        eager: equal tokens, equal to the solo decode, one capture, the limb
+        kernel launched (every block's MLP and the attention projections),
+        the mode-map kernel not; the decode step's breakdown; the logits of
+        the kernel path against the plain limb algebra;
+    (b) full depth, M24 + SLO 0.05 with one forced shift: one capture each
+        of the modal step and the probe across the shifts, one build, the
+        mode-map kernel launched;
+    (c) HYBRID_CUT_LAYERS layers: speculation (k = 3, draft shift 2)
+        against the plain arm, and the paged cache (pages of 16, a shared
+        32-token prefix) against the dense cache: equal tokens;
+    (d) HYBRID_WRAP_LAYERS layers, 3 requests over a 2,032-token shared
+        prefix + 40 new: paged == dense through the window's wrap with
+        copy-on-write forks, and speculative == plain, paged and dense.
+
+    Every engine is retired before the next is made (``retire``)."""
+    release()
+    out = {"depth_cuts": {"a_b": None, "c": HYBRID_CUT_LAYERS, "d": HYBRID_WRAP_LAYERS}}
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    model = full_width_model(policy, arch=HYBRID_ARCH)
+    params = params_cache(model)
+    out["depth_cuts"]["a_b"] = model.cfg.n_layers
+    out["param_gb_full"] = param_gb(params)
+    build.library()
+    reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(21))
+    cfg = ServeConfig(batch_slots=4, max_len=96)
+    # (a)
+    cap = served(model, params, cfg, reqs)
+    eag = served(model, params, cfg, reqs, eager_run=True)
+    check_same_tokens(eag["outs"], cap["outs"], "serve_hybrid eager against captured")
+    check(solo_tokens(model, params, reqs[0], 96) == cap["outs"][reqs[0].rid],
+          "serve_hybrid: batched tokens != solo decode")
+    check(cap["captures"] == 1, f"serve_hybrid captured {cap['captures']} graphs")
+    check(cap["counts"]["limb_matmul"] > 0, "serve_hybrid launched the limb kernel no time")
+    check(cap["counts"]["tile_matmul"] == 0, "a static policy reached the mode-map kernel")
+    check(cap["freed"]["reserved_freed_gb"] > 0, "the captured engine's pool was not freed")
+    counts = dict(cap["counts"])
+    breakdown = step_breakdown(model, params, bound_logits=False)
+    ref_model = model.with_policy(PrecisionPolicy(default=Mode.M16, impl="xla"))
+    toks = torch.as_tensor(np.asarray(reqs[0].prompt)[None, :], device="cuda")
+    l_kernel, _ = model.decode_step(params, toks, model.init_decode_state(1, 96, per_slot=True))
+    l_plain, _ = ref_model.decode_step(params, toks,
+                                       ref_model.init_decode_state(1, 96, per_slot=True))
+    check(bool(torch.isfinite(l_kernel).all()), "non-finite logits")
+    check(tuple(l_kernel.shape) == (1, len(reqs[0].prompt), model.cfg.vocab), "logits shape")
+    gap = float((l_kernel - l_plain).abs().max() / l_plain.std())
+    check(gap < 1e-3, f"hybrid kernel-path logits differ from the plain limb algebra: {gap:.3e}")
+    del l_kernel, l_plain, ref_model
+    out["a"] = dict(policy=policy.describe(), launches=cap["counts"], captured=cap["summary"],
+                    eager=eag["summary"], captured_tokens_equal_eager=True,
+                    solo_equal_rids=[reqs[0].rid], logits_gap_vs_plain_over_spread=gap,
+                    freed_between_engines={"captured": cap["freed"], "eager": eag["freed"]},
+                    breakdown=breakdown)
+    del cap, eag
+    release()
+    # (b)
+    m_policy = PrecisionPolicy(default=Mode.M24, impl="pallas")
+    m_model = model.with_policy(m_policy)
+    m_cfg = ServeConfig(batch_slots=4, max_len=96,
+                        adapt=AdaptConfig(slo=SLO(max_err=0.05), adapt_every=2))
+    holder = {}
+    holder["eng"], m_outs, m_counts, m_wall, m_captures = adapt_run(
+        m_model, params, m_cfg, reqs[:4], eager_run=False, time_steps=True)
+    eng = holder["eng"]
+    check(m_captures == {2} and eng.graph_capture_count == 2,
+          f"serve_hybrid (b): capture counts {sorted(m_captures)} across shifts (want only 2)")
+    check(m_counts["tile_matmul"] > 0, "serve_hybrid (b) launched the mode-map kernel no time")
+    check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 after mode shifts")
+    out["b"] = dict(policy=m_policy.describe(), launches=m_counts,
+                    graph_capture_counts_seen=sorted(m_captures),
+                    mode_timeline=[[int(st), lab] for st, lab in eng.metrics.mode_timeline],
+                    probes=len(eng.controller.history), replay=eng._step_graph.summary(),
+                    **serve_summary(eng, m_outs, m_wall))
+    for k, v in m_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    del eng
+    out["b"]["freed"] = retire(holder, "eng")
+    del params, model, m_model
+    release()
+    # (c)
+    model = full_width_model(policy, HYBRID_CUT_LAYERS, arch=HYBRID_ARCH)
+    params = params_cache(model)
+    plain = served(model, params, cfg, reqs)
+    spec = served(model, params, dataclasses.replace(cfg, spec=SpecConfig(k=3, draft_shift=2)),
+                  reqs)
+    check_same_tokens(spec["outs"], plain["outs"], "serve_hybrid (c): speculative against plain")
+    check(spec["acceptance"] is not None and spec["acceptance"] > 0,
+          f"serve_hybrid (c): acceptance {spec['acceptance']}")
+    preqs = prefix_traffic(model.cfg.vocab, seed=23, n=8)
+    dense = served(model, params, cfg, preqs)
+    paged = served(model, params, dataclasses.replace(
+        cfg, cache=CacheConfig(layout="paged", page_size=16)), preqs)
+    check_same_tokens(paged["outs"], dense["outs"], "serve_hybrid (c): paged against dense")
+    check(paged["pages"]["shared_hits"] > 0, "serve_hybrid (c): no prefix hit")
+    out["c"] = dict(layers=HYBRID_CUT_LAYERS, spec_tokens_equal_plain=True,
+                    paged_tokens_equal_dense=True, acceptance=spec["acceptance"],
+                    verify_steps_per_token=spec["verify_steps_per_token"],
+                    plain=plain["summary"], spec=spec["summary"],
+                    tok_per_s_ratio_spec=(spec["summary"]["tok_per_s"]
+                                          / plain["summary"]["tok_per_s"]),
+                    dense=dense["summary"], paged=paged["summary"], pages=paged["pages"],
+                    freed=[x["freed"] for x in (plain, spec, dense, paged)])
+    del params, model
+    release()
+    # (d)
+    model = full_width_model(policy, HYBRID_WRAP_LAYERS, arch=HYBRID_ARCH)
+    params = params_cache(model)
+    wreqs = wrap_traffic(model.cfg.vocab, seed=24)
+    window = model.cfg.local_window
+    max_len = HYBRID_WRAP_PREFIX + 8 + 40 + 32
+    check(all(len(r.prompt) <= window < len(r.prompt) + r.max_new for r in wreqs),
+          "ring-wrap traffic does not cross the window")
+    wcfg = ServeConfig(batch_slots=3, max_len=max_len)
+    pcache = CacheConfig(layout="paged", page_size=16)
+    k3 = SpecConfig(k=3, draft_shift=2)
+    arms = {"dense": wcfg, "paged": dataclasses.replace(wcfg, cache=pcache),
+            "paged_spec": dataclasses.replace(wcfg, cache=pcache, spec=k3),
+            "dense_spec": dataclasses.replace(wcfg, spec=k3)}
+    wrap = {name: served(model, params, c, wreqs) for name, c in arms.items()}
+    for name in ("paged", "paged_spec", "dense_spec"):
+        check_same_tokens(wrap[name]["outs"], wrap["dense"]["outs"],
+                          f"serve_hybrid (d): {name} against dense through the wrap")
+    for name in ("paged", "paged_spec"):
+        check(wrap[name]["pages"]["cow_copies"] > 0,
+              f"serve_hybrid (d): {name} made no copy-on-write fork across the wrap")
+        check(wrap[name]["pages"]["shared_hits"] > 0, f"serve_hybrid (d): {name}: no prefix hit")
+    out["d"] = dict(layers=HYBRID_WRAP_LAYERS, window=window, max_len=max_len,
+                    prompt_len=[len(r.prompt) for r in wreqs], max_new=40,
+                    tokens_equal_dense={n: True for n in arms if n != "dense"},
+                    pages={n: wrap[n]["pages"] for n in ("paged", "paged_spec")},
+                    acceptance={n: wrap[n]["acceptance"] for n in ("paged_spec", "dense_spec")},
+                    summaries={n: wrap[n]["summary"] for n in arms},
+                    freed={n: wrap[n]["freed"] for n in arms})
+    del params, model
+    release()
+    c = get_config(HYBRID_ARCH)
+    emit("serve_hybrid", arch=HYBRID_ARCH, layers=c.n_layers, d_model=c.d_model, d_ff=c.d_ff,
+         heads=c.n_heads, kv_heads=c.n_kv_heads, head_dim=c.head_dim, vocab=c.vocab,
+         window=c.local_window, launches=counts, build_count=build.BUILD_COUNT, **out)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -1966,6 +2299,12 @@ def kernels_line(checks, timing, main_counts) -> dict:
             launches = main_counts[name]
         if "ms_splits1" in main:
             entry.update(splits=main["splits"], ms_splits1=main["ms_splits1"])
+        hybrid = [r for r in rows if r.get("hybrid")]
+        if hybrid:
+            entry["hybrid_shapes"] = [
+                {key: r[key] for key in ("m", "k", "n", "limbs", "splits", "ms", "bound_ms",
+                                         "bound_by", "plain_ms", "library_ms")}
+                for r in hybrid]
         runtime = [r for r in at if r.get("via") == "tile_matmul_runtime"]
         if runtime:
             entry.update(runtime_ms=runtime[0]["ms"], runtime_enqueue_ms=runtime[0]["enqueue_ms"])
@@ -2010,8 +2349,9 @@ def main() -> int:
     cache: dict = {}
 
     def params_cache(model):
-        """Seed-made weights, shared by phases of the same depth."""
-        key = model.cfg.n_layers
+        """Seed-made weights, shared by phases of the same model and depth
+        (one set held at a time)."""
+        key = (model.cfg.name, model.cfg.n_layers)
         if key not in cache:
             cache.clear()
             cache[key] = model.init(0)
@@ -2033,7 +2373,8 @@ def main() -> int:
     if "tune" in phases:
         phase_tune(params_cache)
     for name, fn in (("serve_spec", phase_serve_spec), ("serve_paged", phase_serve_paged),
-                     ("serve_tenants", phase_serve_tenants)):
+                     ("serve_tenants", phase_serve_tenants), ("serve_ssm", phase_serve_ssm),
+                     ("serve_hybrid", phase_serve_hybrid)):
         if name in phases:
             for kname, c in fn(params_cache).items():
                 if kname in main_counts:

@@ -1,5 +1,6 @@
-"""Registry of the architectures.  Only ``qwen1.5-0.5b`` (dense) is ported;
-the other ids are known and raise "not ported yet"."""
+"""Registry of the architectures.  Ported: ``qwen1.5-0.5b`` (dense),
+``mamba2-2.7b`` (ssm) and ``recurrentgemma-9b`` (hybrid); the other ids are
+known and raise "not ported yet"."""
 from __future__ import annotations
 
 import importlib
@@ -18,7 +19,7 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
-_PORTED = ("qwen1.5-0.5b",)
+_PORTED = ("qwen1.5-0.5b", "mamba2-2.7b", "recurrentgemma-9b")
 
 ARCH_IDS = tuple(_MODULES)
 

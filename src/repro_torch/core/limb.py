@@ -32,8 +32,18 @@ def _to_bf16(x: torch.Tensor, rounding: str) -> torch.Tensor:
 def split_limbs(x, k: int, rounding: str = "rne") -> torch.Tensor:
     """Split ``x`` (f32 tensor or DoubleF32) into ``k`` bf16 limbs.
 
-    Returns a (k, *x.shape) bf16 tensor with x ~= sum_i limbs[i].
+    Returns a (k, *x.shape) bf16 tensor with x ~= sum_i limbs[i] (the limbs
+    of ``split_limbs_f32``, cast back: exact).
     """
+    return torch.stack([li.to(torch.bfloat16) for li in split_limbs_f32(x, k, rounding)])
+
+
+def split_limbs_f32(x, k: int, rounding: str = "rne") -> list[torch.Tensor]:
+    """Split ``x`` (f32 tensor or DoubleF32) into ``k`` bf16 limbs, each
+    returned upcast to float32 (exact): the form the limb algebra
+    multiplies.  The limbs are made one at a time and the residual is
+    updated in place, so a large operand (a logits weight of 4096 x 256000)
+    holds at most its f32 limbs, one residual and one bf16 limb at once."""
     if isinstance(x, DoubleF32):
         hi, lo = x.hi.to(torch.float32), x.lo.to(torch.float32)
     else:
@@ -46,10 +56,17 @@ def split_limbs(x, k: int, rounding: str = "rne") -> torch.Tensor:
             # (The residual r is ~0 here; adding first keeps any leftovers.)
             r = r + lo
             lo = None
-        li = _to_bf16(r, rounding)
+        b = _to_bf16(r, rounding)
+        if i + 1 == k:
+            r = None  # the last residual is not needed: free it first
+        li = b.to(torch.float32)
+        del b
         limbs.append(li)
-        r = r - li.to(torch.float32)
-    return torch.stack(limbs)
+        if r is not None:
+            # the first subtraction makes a new tensor (``r`` may be the
+            # caller's operand); the later ones reuse it
+            r = r - li if r is hi else r.sub_(li)
+    return limbs
 
 
 def reconstruct(limbs: torch.Tensor) -> torch.Tensor:

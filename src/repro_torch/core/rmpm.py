@@ -94,17 +94,15 @@ def _limb_einsum(
 
     A PyTorch product of bf16 inputs returns bf16, so each limb is upcast to
     f32 first (exact: a bf16 value is an f32 value) and the pass is a full
-    f32 product — TF32 must be off on the GPU, and is checked to be.  Terms
-    are computed one at a time so that a large operand (the logits weight)
-    never holds more than its limbs and one product."""
+    f32 product — TF32 must be off on the GPU, and is checked to be.  The
+    limbs are made in f32 one at a time (``split_limbs_f32``) and terms are
+    computed one at a time, so that a large operand (the logits weight)
+    never holds more than its f32 limbs and one product."""
     if compensated is None:
         compensated = k >= 4
-    a_limbs = limb_lib.split_limbs(a, k, rounding)
-    b_limbs = limb_lib.split_limbs(b, k, rounding)
-    require_full_f32_matmul(a_limbs.device)
-    a_f = [x.to(torch.float32) for x in a_limbs]
-    b_f = [x.to(torch.float32) for x in b_limbs]
-    del a_limbs, b_limbs
+    a_f = limb_lib.split_limbs_f32(a, k, rounding)
+    b_f = limb_lib.split_limbs_f32(b, k, rounding)
+    require_full_f32_matmul(a_f[0].device)
     terms = limb_lib.limb_product_terms(k)
     if compensated:
         return _neumaier_sum([torch.einsum(eq, a_f[i], b_f[j]) for i, j in terms])
@@ -125,12 +123,9 @@ def _limb_einsum_ladder(eq: str, a, b, rounding: str = "rne") -> list[Tensor]:
     ordered smallest first (``limb_product_terms``), so k = 3's order does
     not extend k = 2's and each mode folds its own terms in its own order."""
     kmax = MODE_LIMBS[F32_MODES[-1]]
-    a_limbs = limb_lib.split_limbs(a, kmax, rounding)
-    b_limbs = limb_lib.split_limbs(b, kmax, rounding)
-    require_full_f32_matmul(a_limbs.device)
-    a_f = [x.to(torch.float32) for x in a_limbs]
-    b_f = [x.to(torch.float32) for x in b_limbs]
-    del a_limbs, b_limbs
+    a_f = limb_lib.split_limbs_f32(a, kmax, rounding)
+    b_f = limb_lib.split_limbs_f32(b, kmax, rounding)
+    require_full_f32_matmul(a_f[0].device)
     products = {(i, j): torch.einsum(eq, a_f[i], b_f[j])
                 for i, j in limb_lib.limb_product_terms(kmax)}
     out = []

@@ -1,4 +1,5 @@
-"""Serving launcher: open-loop continuous batching of the ported arch.
+"""Serving launcher: open-loop continuous batching of a ported arch
+(``qwen1.5-0.5b``, ``mamba2-2.7b``, ``recurrentgemma-9b``).
 
 Requests arrive by a Poisson process (``--arrival-rate`` req/s of wall
 clock; 0 = everything at t=0), with ragged prompt lengths and per-request
@@ -154,6 +155,9 @@ def main(argv: list[str] | None = None) -> None:
     cfg = cfg.with_policy(policy)
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("the launcher serves text-only families (the reference's "
+                         "launcher refuses encdec and vlm too)")
     model = build_model(cfg, device=args.device)  # None -> the GPU, or raise
     params = model.init(args.seed)
 

@@ -666,3 +666,23 @@ def swiglu_apply(p: Params, x: Tensor, policy: PrecisionPolicy) -> Tensor:
     g = pmm(x, p["gate"]["w"], "mlp_up", policy)
     u = pmm(x, p["up"]["w"], "mlp_up", policy)
     return pmm(F.silu(g) * u, p["down"]["w"], "mlp_down", policy)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (SSM / RG-LRU front)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: Tensor, w: Tensor, state: Tensor | None = None):
+    """x: (B, S, C); w: (K, C) depthwise.  Returns (y, new_state) where
+    state carries the trailing K-1 inputs for decode.  The K taps are summed
+    in the reference's order, so the result is the reference's bit for bit."""
+    ksz = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, ksz - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s, :] * w[i][None, None, :] for i in range(ksz))
+    new_state = xp[:, -(ksz - 1):, :] if ksz > 1 else None
+    return y, new_state

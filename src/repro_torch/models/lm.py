@@ -1,15 +1,24 @@
-"""The language model, dense family (``qwen1.5-0.5b`` and its smoke size).
+"""The language model: the dense, ``ssm`` (Mamba-2) and ``hybrid``
+(RecurrentGemma: RG-LRU + local attention) families.
 
 Functional style like the reference: ``init(seed) -> params`` (a nested dict
 of tensors), ``apply(params, batch)`` for the full-sequence forward,
 ``decode_step`` for serving (a multi-token call is the prefill).  Where the
 reference scans a stacked layer axis, this is a Python loop over the layers:
 parameters keep the stacked layout — ``params["layers"]["seg0_dense"]``
-leaves carry a leading layer axis and weights are ``(d_in, d_out)`` — and
-layer ``i`` reads the view ``leaf[i]``.  Decode caches are a list with one
-``KVCache`` per layer (or one ``PagedKVCache`` per layer, built by the
-paged serving layout).  The other families (moe / ssm / hybrid / encdec /
-vlm) are not ported yet.
+(or ``"seg0_ssm"``) leaves carry a leading layer axis, the hybrid's
+repeating ``(rec, rec, attn_local)`` supergroup is ``params["super"]`` with
+its leaves stacked over the supergroups and the remainder layers
+``params["rem"]`` unstacked, as in the reference — and weights are
+``(d_in, d_out)``; layer ``i`` reads the view ``leaf[i]``.
+
+Decode caches are a dict of lists with one node per layer, so every batch
+axis is 0: ``KVCache`` (or ``PagedKVCache``, built by the paged serving
+layout) for attention, ``SSMState`` for a Mamba-2 block, ``RGLRUState`` for
+a recurrent block.  The hybrid's keys name the stack and the pattern slot
+(``"super/l0_rec"``, ``"super/l2_attn_local"``, ``"rem/l0_rec"``); its
+local-attention caches hold ``min(max_len, local_window)`` rows, a ring.
+The moe / encdec / vlm families are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import griffin as griffin_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
     Params,
@@ -34,20 +45,22 @@ from repro_torch.models.layers import (
 
 Tensor = torch.Tensor
 
-_SEG = "seg0_dense"
+#: the families whose blocks are ported
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
 class DecodeState:
-    caches: Any  # {"seg0_dense": [KVCache or PagedKVCache per layer]}
+    caches: Any  # {cache key: [one KVCache / PagedKVCache / SSMState / RGLRUState per layer]}
     position: Tensor  # scalar int32; (B,) int32 in per-slot (serving) layout
     enc_out: Tensor | None = None  # encdec only (not ported)
 
 
 def map_state(fn, *states: DecodeState) -> DecodeState:
     """Apply ``fn(leaf, ...)`` to every tensor leaf of DecodeStates of the
-    same structure (``None`` leaves stay ``None``); cache nodes of either
-    layout (``KVCache``, ``PagedKVCache``) keep their type."""
+    same structure (``None`` leaves stay ``None``); cache nodes of every
+    kind (``KVCache``, ``PagedKVCache``, ``SSMState``, ``RGLRUState``) keep
+    their type."""
     first = states[0]
 
     def leaf(*xs):
@@ -95,30 +108,117 @@ def layer_params(stacked: Params, i: int) -> Params:
     return stacked[i]
 
 
-def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, *, positions=None, cache=None,
-                 write_pools: bool = True):
-    """One dense block.  Returns (x, new_cache)."""
-    h, new_cache = attention_apply(
-        p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
-        positions=positions, cache=cache, write_pools=write_pools,
-    )
-    x = x + h
-    h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
-    return x + h, new_cache
+def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                layers: int | None) -> Params:
+    """One block of ``kind`` (``layers=L``: L blocks stacked on a leading
+    axis), the reference's ``_block_init`` tree."""
+    lead = () if layers is None else (layers,)
+
+    def norm():
+        return torch.zeros((*lead, cfg.d_model), dtype=torch.float32, device=gen.device)
+
+    p: Params = {"norm1": norm()}
+    if kind in ("dense", "attn_local"):
+        p["attn"] = attention_init(gen, cfg, layers=layers)
+        p["norm2"] = norm()
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, layers=layers)
+    elif kind == "ssm":
+        p["ssm"] = ssm_lib.mamba2_init(gen, cfg, layers=layers)
+    elif kind == "rec":
+        p["rec"] = griffin_lib.rglru_init(gen, cfg, layers=layers)
+        p["norm2"] = norm()
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, layers=layers)
+    else:
+        raise ValueError(kind)
+    return p
+
+
+def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, kind: str, *, positions=None,
+                 cache=None, write_pools: bool = True):
+    """One block of ``kind``.  Returns (x, new_cache)."""
+    if kind in ("dense", "attn_local"):
+        h, new_cache = attention_apply(
+            p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
+            positions=positions, cache=cache,
+            window=cfg.local_window if kind == "attn_local" else 0,
+            write_pools=write_pools,
+        )
+        x = x + h
+        h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
+        return x + h, new_cache
+    if kind == "ssm":
+        h, new_state = ssm_lib.mamba2_apply(
+            p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
+        return x + h, new_state
+    if kind == "rec":
+        h, new_state = griffin_lib.rglru_block_apply(
+            p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
+        x = x + h
+        h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
+        return x + h, new_state
+    raise ValueError(kind)
+
+
+def _layer_kinds(cfg: ArchConfig) -> list[str]:
+    if cfg.family == "dense":
+        return ["dense"] * cfg.n_layers
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid_pattern or ("rec", "rec", "attn_local")
+        return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    raise ValueError(cfg.family)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layer:
+    """Where one layer lives: its kind, its parameters
+    (``params[top][key]``, layer ``index`` of a stacked tree or the whole
+    tree when ``index`` is None) and its cache (``caches[cache_key][node]``)."""
+
+    kind: str
+    top: str
+    key: str
+    index: int | None
+    cache_key: str
+    node: int
 
 
 class LanguageModel:
-    """cfg-driven functional model (dense family)."""
+    """cfg-driven functional model (dense, ssm and hybrid families)."""
 
     def __init__(self, cfg: ArchConfig, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported yet (ROADMAP "
-                f"Queue A item 11, 'Remaining model families')")
+                f"Queue A item 11b, 'Remaining model families'); ported: "
+                f"{PORTED_FAMILIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.kinds = ["dense"] * cfg.n_layers
-        self.segments: list[tuple[str, int]] = [("dense", cfg.n_layers)]
+        self.kinds = _layer_kinds(cfg)
+        # contiguous runs of identical layer kinds share one stacked tree
+        self.segments: list[tuple[str, int]] = []
+        for kd in self.kinds:
+            if self.segments and self.segments[-1][0] == kd:
+                self.segments[-1] = (kd, self.segments[-1][1] + 1)
+            else:
+                self.segments.append((kd, 1))
+        if cfg.family == "hybrid":
+            # the repeating supergroup, stacked, then the remainder layers
+            pat = cfg.hybrid_pattern or ("rec", "rec", "attn_local")
+            n_super, rem = divmod(cfg.n_layers, len(pat))
+            self.hybrid_pat = tuple(pat)
+            self.n_super = n_super
+            self.hybrid_rem = [pat[i] for i in range(rem)]
+            self.layers = [
+                _Layer(kd, "super", f"l{i}_{kd}", g, f"super/l{i}_{kd}", g)
+                for g in range(n_super) for i, kd in enumerate(pat)]
+            self.layers += [_Layer(kd, "rem", f"l{i}_{kd}", None, f"rem/l{i}_{kd}", 0)
+                            for i, kd in enumerate(self.hybrid_rem)]
+        else:
+            self.layers = [
+                _Layer(kd, "layers", f"seg{si}_{kd}", i, f"seg{si}_{kd}", i)
+                for si, (kd, n) in enumerate(self.segments) for i in range(n)]
 
     def with_policy(self, policy) -> "LanguageModel":
         return LanguageModel(self.cfg.with_policy(policy), device=self.device)
@@ -136,22 +236,20 @@ class LanguageModel:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
         dev = gen.device
-        n = cfg.n_layers
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=dev)
-
         params: Params = {
             "embed": {"w": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                                        device=dev, dtype=torch.float32) * 0.02},
-            "final_norm": zeros(cfg.d_model),
-            "layers": {_SEG: {
-                "norm1": zeros(n, cfg.d_model),
-                "attn": attention_init(gen, cfg, layers=n),
-                "norm2": zeros(n, cfg.d_model),
-                "mlp": swiglu_init(gen, cfg.d_model, cfg.d_ff, layers=n),
-            }},
+            "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
         }
+        if cfg.family == "hybrid":
+            params["super"] = {f"l{i}_{kd}": _block_init(gen, cfg, kd, self.n_super)
+                               for i, kd in enumerate(self.hybrid_pat)}
+            if self.hybrid_rem:
+                params["rem"] = {f"l{i}_{kd}": _block_init(gen, cfg, kd, None)
+                                 for i, kd in enumerate(self.hybrid_rem)}
+        else:
+            params["layers"] = {f"seg{si}_{kd}": _block_init(gen, cfg, kd, n)
+                                for si, (kd, n) in enumerate(self.segments)}
         if not cfg.tie_embeddings:
             params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, scale=0.02)
         return params
@@ -168,25 +266,32 @@ class LanguageModel:
             return pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
         return pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
 
-    def _stack(self, seg_params, x, *, caches=None, positions=None, write_pools=True):
-        """Python loop over the stacked layer axis.  Returns (x, new_caches)."""
-        new_caches = []
-        for i in range(self.cfg.n_layers):
+    def _stack(self, params: Params, x, *, caches=None, positions=None, write_pools=True):
+        """Python loop over the layers in the reference's order (for the
+        hybrid: every supergroup's pattern, then the remainder).  Returns
+        (x, new_caches)."""
+        new_caches = (None if caches is None
+                      else {key: list(nodes) for key, nodes in caches.items()})
+        for ly in self.layers:
+            tree = params[ly.top][ly.key]
+            p = tree if ly.index is None else layer_params(tree, ly.index)
             x, nc = _block_apply(
-                layer_params(seg_params, i), x, self.cfg, positions=positions,
-                cache=None if caches is None else caches[i], write_pools=write_pools)
-            new_caches.append(nc)
-        return x, (None if caches is None else new_caches)
+                p, x, self.cfg, ly.kind, positions=positions,
+                cache=None if caches is None else caches[ly.cache_key][ly.node],
+                write_pools=write_pools)
+            if caches is not None:
+                new_caches[ly.cache_key][ly.node] = nc
+        return x, new_caches
 
     # -- full-sequence forward ------------------------------------------------
 
     @torch.no_grad()
     def apply(self, params: Params, batch: dict[str, Tensor]) -> tuple[Tensor, Tensor]:
-        """Returns (logits, aux_loss); aux is 0 for the dense family."""
+        """Returns (logits, aux_loss); aux is 0 for the ported families."""
         tokens = batch["tokens"].to(self.device)
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._stack(params["layers"][_SEG], x, positions=positions)
+        x, _ = self._stack(params, x, positions=positions)
         return self._logits(params, x), torch.zeros((), device=x.device)
 
     # -- serving ----------------------------------------------------------------
@@ -195,13 +300,27 @@ class LanguageModel:
                           per_slot: bool = False) -> DecodeState:
         """``per_slot=True`` builds the continuous-batching layout: every KV
         cache carries (B,) lengths / (B, Smax) positions and ``position`` is
-        (B,), so slots at different sequence depths share one decode step."""
+        (B,), so slots at different sequence depths share one decode step.
+        Recurrent states (``SSMState``, ``RGLRUState``) are per-row in either
+        layout; a local-attention cache holds ``min(max_len, local_window)``
+        rows."""
         cfg = self.cfg
         dev = self.device
-        caches = {_SEG: [
-            kv_cache_init(batch, max_len, cfg.n_kv_heads, cfg.head_dim,
-                          cfg.kv_cache_dtype, per_slot=per_slot, device=dev)
-            for _ in range(cfg.n_layers)]}
+
+        def node(kind):
+            if kind in ("dense", "attn_local"):
+                cap = max_len
+                if kind == "attn_local":
+                    cap = min(max_len, cfg.local_window or max_len)
+                return kv_cache_init(batch, cap, cfg.n_kv_heads, cfg.head_dim,
+                                     cfg.kv_cache_dtype, per_slot=per_slot, device=dev)
+            if kind == "ssm":
+                return ssm_lib.ssm_state_init(cfg, batch, device=dev)
+            return griffin_lib.rglru_state_init(cfg, batch, device=dev)
+
+        caches: dict[str, list] = {}
+        for ly in self.layers:
+            caches.setdefault(ly.cache_key, []).append(node(ly.kind))
         position = (torch.zeros((batch,), dtype=torch.int32, device=dev) if per_slot
                     else torch.zeros((), dtype=torch.int32, device=dev))
         return DecodeState(caches=caches, position=position, enc_out=None)
@@ -219,11 +338,11 @@ class LanguageModel:
         pos0 = state.position
         positions = (pos0[:, None] if pos0.dim() else pos0) + torch.arange(
             x.shape[1], device=x.device)
-        x, nc = self._stack(params["layers"][_SEG], x, caches=state.caches[_SEG],
-                            positions=positions, write_pools=write_pools)
+        x, nc = self._stack(params, x, caches=state.caches, positions=positions,
+                            write_pools=write_pools)
         logits = self._logits(params, x)
         new_state = DecodeState(
-            caches={_SEG: nc},
+            caches=nc,
             position=(state.position + tokens.shape[1]).to(torch.int32),
             enc_out=state.enc_out,
         )

@@ -72,7 +72,6 @@ host code between replays, never inside a captured body.
 """
 from __future__ import annotations
 
-import functools
 import time
 
 import numpy as np
@@ -378,25 +377,35 @@ class ServeEngine:
         dev = self.device
         self._tokens = torch.zeros((self.slots, 1), dtype=torch.int32, device=dev)
         self._active_dev = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
-        ahead = self.spec.k + 1 if self.spec is not None else 1
-        snap = functools.partial(self._snapshot, ahead)
+        # one memory pool for all of this engine's graphs (replayed one at a
+        # time, outputs read before the next replay)
+        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         self._step_graph = self._round_graph = self._probe_graph = None
+        common = dict(snapshot=self._snapshot, pool=pool)
         if self.spec is not None:
             self._draft_modes = self._spec_table.device_view(dev)
             self._verify_modes = (self._spec_table.device_view(dev)
                                   if self.slo is not None else None)
             self._round_graph = CompiledStep(
-                self._spec_round_body, dev, name="spec_round", snapshot=snap)
+                self._spec_round_body, dev, name="spec_round", **common)
         elif self.slo is not None:
             self._step_modes = self._site_table.device_view(dev)
             self._step_graph = CompiledStep(
-                self._modal_step_body, dev, name="masked_step_modal", snapshot=snap)
+                self._modal_step_body, dev, name="masked_step_modal", **common)
         else:
             self._step_graph = CompiledStep(
-                self._plain_step_body, dev, name="masked_step", snapshot=snap)
+                self._plain_step_body, dev, name="masked_step", **common)
         if self.slo is not None:
             self._probe_modes = self._site_table.device_view(dev)
-            self._probe_graph = CompiledStep(self._probe_body, dev, name="probe")
+            self._probe_graph = CompiledStep(self._probe_body, dev, name="probe", pool=pool)
+
+    def close(self) -> None:
+        """Drop the compiled steps' graphs and their memory pool now.  (A
+        dropped engine frees them as well, without a cycle collection: the
+        steps hold the engine weakly.)  A later step captures again."""
+        for g in (self._step_graph, self._round_graph, self._probe_graph):
+            if g is not None:
+                g.close()
 
     @property
     def _site_table(self):
@@ -407,15 +416,21 @@ class ServeEngine:
             return self.mode_table
         return next(iter(self.tenant_tables.values()))
 
-    def _snapshot(self, n: int):
-        """Save what ``n`` decode steps overwrite in the static state — the
+    @property
+    def _ahead(self) -> int:
+        """Tokens one compiled step appends to each active row: 1, or the
+        speculative round's k + 1."""
+        return self.spec.k + 1 if self.spec is not None else 1
+
+    def _snapshot(self):
+        """Save what one compiled step overwrites in the static state — the
         per-row leaves (a step's merge and copy-back write them whole) and,
-        paged, the pool slots of each row's next ``n`` appends (the pools
-        are written in place and too large to clone) — and return the
+        paged, the pool slots of each row's next ``_ahead`` appends (the
+        pools are written in place and too large to clone) — and return the
         function that writes it back."""
         leaves = batch_leaves(self._axes, self.state)
         saved = [x.clone() for x in leaves]
-        pools = save_pools(self.state, n)
+        pools = save_pools(self.state, self._ahead)
 
         def restore():
             for x, old in zip(leaves, saved):
@@ -580,11 +595,10 @@ class ServeEngine:
         same bit-exact preemption path tenancy uses), freeing its pages;
         repeat until the survivors fit.  Dense layouts return no failures
         and this is a no-op."""
-        ahead = (self.spec.k + 1) if self.spec is not None else 1
         while self._active.any():
             lengths = {int(s): int(self._row_len[s])
                        for s in np.nonzero(self._active)[0]}
-            state, failed = self.layout.prepare_step(self.state, lengths, ahead)
+            state, failed = self.layout.prepare_step(self.state, lengths, self._ahead)
             self._set_state(state)
             if not failed:
                 return

@@ -26,11 +26,23 @@ tensor from host data.
 ``kernels.build.LAUNCHES`` is counted by the kernels' Python wrappers, which
 a replay does not run: the launches a capture recorded are added per
 replay instead, so launch counts stay true under replay.
+
+The steps of one engine capture into ONE private memory pool (``pool``,
+``torch.cuda.graph_pool_handle``): they are replayed one at a time and the
+engine reads each step's outputs before the next replay, so their
+temporaries may share memory (at RecurrentGemma-9b's width the logits'
+limbs alone take over 10 GB a graph).  A step holds its function weakly (a
+bound method of the engine), so an engine and its steps form no reference
+cycle: a dropped engine frees its graphs, and with them the pool, at once,
+not at the next cycle collection.  :meth:`CompiledStep.close` drops a
+graph explicitly.
 """
 from __future__ import annotations
 
 import contextlib
+import inspect
 import time
+import weakref
 from typing import Callable
 
 import torch
@@ -53,6 +65,24 @@ def eager():
         _EAGER[0] -= 1
 
 
+def _weakly(fn: Callable | None) -> Callable | None:
+    """``fn`` without a strong reference to the object it is bound to: a
+    bound method is called through a ``weakref.WeakMethod``; any other
+    callable is kept as it is."""
+    if fn is None or not inspect.ismethod(fn):
+        return fn
+    ref = weakref.WeakMethod(fn)
+    name = fn.__qualname__
+
+    def call():
+        method = ref()
+        if method is None:
+            raise RuntimeError(f"{name}: its object is gone")
+        return method()
+
+    return call
+
+
 class CompiledStep:
     """One compiled step: ``fn`` captured once as a CUDA graph on ``device``
     and replayed on every call (see the module docstring).
@@ -60,15 +90,19 @@ class CompiledStep:
     ``snapshot``: when ``fn`` writes persistent buffers (the static decode
     state), a callable that saves what one run of ``fn`` overwrites and
     returns the function that puts it back; the warm-up's writes are undone
-    with it before the capture.
+    with it before the capture.  ``pool``: the memory pool to capture into
+    (shared by the steps of one engine), or None for a pool of its own.
+    Both callables are held weakly when they are bound methods.
     """
 
     def __init__(self, fn: Callable[[], object], device, *, name: str,
-                 snapshot: Callable[[], Callable[[], None]] | None = None):
-        self.fn = fn
+                 snapshot: Callable[[], Callable[[], None]] | None = None,
+                 pool=None):
+        self.fn = _weakly(fn)
         self.device = torch.device(device)
         self.name = name
-        self.snapshot = snapshot
+        self.snapshot = _weakly(snapshot)
+        self.pool = pool
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
         #: kernel launches one replay makes, recorded at capture
@@ -101,9 +135,12 @@ class CompiledStep:
         if restore is not None:
             restore()
         del restore
+        # the warm-up's freed blocks go back to the card, so the graph's
+        # pool can take them (a large model's step cannot hold both)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before = build.launch_counts()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=self.pool):
             outputs = self.fn()
         after = build.launch_counts()
         # a capture enqueues nothing: what the wrappers counted meanwhile is
@@ -113,3 +150,11 @@ class CompiledStep:
         self.graph, self.outputs = graph, outputs
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Drop the graph and its outputs (their memory goes back to the
+        pool, and the pool to the allocator once no graph holds it).  A
+        later call captures again."""
+        self.graph = None
+        self.outputs = None
+        self.pool = None

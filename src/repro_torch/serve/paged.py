@@ -11,10 +11,14 @@ implementations:
 * :class:`DenseLayout` — the per-slot ring cache: every row owns
   ``max_len`` rows of every cache up front, so all hooks but gather/scatter
   are trivial (the default);
-* :class:`PagedLayout` — every cache group becomes a list of
+* :class:`PagedLayout` — every attention cache group becomes a list of
   :class:`~repro_torch.models.layers.PagedKVCache` nodes (one per layer)
   over fixed-size pages in a shared pool, with per-row page tables,
-  allocation on append and free on completion or eviction.  Virtual
+  allocation on append and free on completion or eviction.  Each group has
+  its own capacity (the hybrid's local-attention group holds its window,
+  a ring).  Recurrent states (``SSMState``, ``RGLRUState``) have nothing to
+  page: they stay per-slot dense nodes inside the paged state, with a
+  batch axis, gathered and scattered bit for bit.  Virtual
   addressing keeps the dense ring semantics exactly, so at full precision
   paged serving gives the dense layout's tokens — while admission is gated
   on free *pages*, so short-lived requests stack past the dense
@@ -73,6 +77,34 @@ from repro_torch.serve.config import CacheConfig
 #: inactive rows' writes to the scratch page).
 SHARED = -1
 BATCH_AXIS = 0
+
+
+def _batch_node(node):
+    """A recurrent-state node with every field at the batch axis."""
+    return type(node)(*[None if getattr(node, f.name) is None else BATCH_AXIS
+                        for f in dataclasses.fields(node)])
+
+
+def _gather_node(node, slot: int):
+    """Row ``slot`` of a per-slot dense node, a copy (it outlives the step)."""
+    return type(node)(*[None if (x := getattr(node, f.name)) is None
+                        else x[slot:slot + 1].clone() for f in dataclasses.fields(node)])
+
+
+def _scatter_node(node, row, slot: int) -> None:
+    """Write a batch-1 row into ``slot`` of a per-slot dense node, in place."""
+    for f in dataclasses.fields(node):
+        x = getattr(node, f.name)
+        if x is not None:
+            x[slot:slot + 1] = getattr(row, f.name).to(x.dtype)
+
+
+def _recurrent_note(axes: DecodeState) -> str:
+    """The describe() suffix for a layout's recurrent-state nodes (the
+    nodes of ``axes`` that are not attention caches), or ''."""
+    n = sum(len(nodes) for nodes in axes.caches.values()
+            if not isinstance(nodes[0], (KVCache, PagedKVCache)))
+    return f" | recurrent state: {n} per-slot dense nodes" if n else ""
 
 
 def compute_axes(state: DecodeState) -> DecodeState:
@@ -494,7 +526,7 @@ class DenseLayout(KVLayout):
 
     def describe(self) -> str:
         return (f"dense ring cache: {self.slots} slots x {self.max_len} "
-                f"rows (admission on free slots)")
+                f"rows (admission on free slots){_recurrent_note(self.axes)}")
 
 
 @dataclasses.dataclass
@@ -525,9 +557,15 @@ class PagedLayout(KVLayout):
         self.max_len = max_len
         self.cfg = cfg
         ps = cfg.page_size
-        # one row of the dense state: each group's capacity, heads and dtype
+        # one row of the dense state: each attention group's capacity, heads
+        # and dtype; the recurrent groups stay dense per-slot nodes
         spec = model.init_decode_state(1, max_len, per_slot=True)
-        caps = [layers[0].pos.shape[-1] for layers in spec.caches.values()]
+        kv_keys = [key for key in spec.caches if isinstance(spec.caches[key][0], KVCache)]
+        self.state_keys = [key for key in spec.caches if key not in kv_keys]
+        #: the model's order of the cache groups, kept by every state and
+        #: axes tree this layout builds (leaves are zipped in that order)
+        self.keys = list(spec.caches)
+        caps = [spec.caches[key][0].pos.shape[-1] for key in kv_keys]
         ppr_max = max((-(-c // ps) for c in caps), default=1)
         if cfg.pool_pages is None:
             # memory-equivalent to the dense layout at this slot count
@@ -539,7 +577,8 @@ class PagedLayout(KVLayout):
                     f"pool_pages={cfg.pool_pages} below one row of the "
                     f"largest group ({ppr_max} pages of {ps} tokens)")
         self.groups: list[_Group] = []
-        for key, layers in spec.caches.items():
+        for key in kv_keys:
+            layers = spec.caches[key]
             n = layers[0]
             cap = n.pos.shape[-1]
             dtype = "int8" if n.k.dtype == torch.int8 else "bf16"
@@ -553,6 +592,8 @@ class PagedLayout(KVLayout):
                 key=key, cap=cap, n_kv=n.k.shape[-2], hd=n.k.shape[-1],
                 dtype=dtype, layers=len(layers),
                 pool=PagePool(n_pages, ps, cap, slots)))
+        state_axes = {key: [_batch_node(n) for n in spec.caches[key]]
+                      for key in self.state_keys}
         del spec
         self.tier_ctrl = (PageTierController(cfg.tier_policy)
                           if cfg.tier_policy is not None else None)
@@ -562,17 +603,23 @@ class PagedLayout(KVLayout):
             scale = SHARED if g.dtype == "int8" else None
             return PagedKVCache(SHARED, SHARED, scale, scale, SHARED, BATCH_AXIS, BATCH_AXIS)
 
+        group_axes = {g.key: [node_axes(g)] * g.layers for g in self.groups}
         self.axes = DecodeState(
-            caches={g.key: [node_axes(g)] * g.layers for g in self.groups},
+            caches={key: state_axes[key] if key in state_axes else group_axes[key]
+                    for key in self.keys},
             position=BATCH_AXIS, enc_out=None)
 
     # -- state construction --------------------------------------------------
 
     def init(self) -> DecodeState:
-        """The paged decode state: per group, one node per layer over its
-        own pools, all sharing the group's one table tensor."""
+        """The paged decode state: per attention group, one node per layer
+        over its own pools, all sharing the group's one table tensor; per
+        recurrent group, the dense per-slot nodes (a state made at
+        ``max_len`` 1: the recurrent states do not depend on it)."""
         dev = self.model.device
-        caches = {}
+        dense = self.model.init_decode_state(self.slots, 1, per_slot=True)
+        caches = {key: dense.caches[key] for key in self.state_keys}
+        del dense
         for g in self.groups:
             tbl = torch.full((self.slots, g.pool.per_row), -1, dtype=torch.int32, device=dev)
             caches[g.key] = [
@@ -581,7 +628,8 @@ class PagedLayout(KVLayout):
                                  g.pool.n_pages, g.pool.ps, device=dev, page_tbl=tbl)
                 for _ in range(g.layers)]
         position = torch.zeros((self.slots,), dtype=torch.int32, device=dev)
-        return DecodeState(caches=caches, position=position, enc_out=None)
+        return DecodeState(caches={key: caches[key] for key in self.keys},
+                           position=position, enc_out=None)
 
     def _sync(self, state: DecodeState) -> None:
         """Push the host page tables into the device ``page_tbl`` tensors
@@ -610,10 +658,12 @@ class PagedLayout(KVLayout):
 
     def gather_row(self, state: DecodeState, slot: int) -> DecodeState:
         self._sync(state)
-        return DecodeState(
-            caches={g.key: [paged_gather_row(n, slot) for n in state.caches[g.key]]
-                    for g in self.groups},
-            position=state.position[slot:slot + 1].clone(), enc_out=None)
+        paged = {g.key for g in self.groups}
+        caches = {key: [paged_gather_row(n, slot) if key in paged else _gather_node(n, slot)
+                        for n in nodes]
+                  for key, nodes in state.caches.items()}
+        return DecodeState(caches=caches, position=state.position[slot:slot + 1].clone(),
+                           enc_out=None)
 
     def scatter_row(self, state: DecodeState, row: DecodeState, slot: int, *,
                     prompt=None, length=None) -> DecodeState:
@@ -643,6 +693,9 @@ class PagedLayout(KVLayout):
         for g, wt in zip(self.groups, write_tbls):
             for node, rnode in zip(state.caches[g.key], row.caches[g.key], strict=True):
                 paged_scatter_row(node, rnode, slot, wt)
+        for key in self.state_keys:
+            for node, rnode in zip(state.caches[key], row.caches[key], strict=True):
+                _scatter_node(node, rnode, slot)
         state.position[slot:slot + 1] = row.position
         return state
 
@@ -809,7 +862,7 @@ class PagedLayout(KVLayout):
         return (f"paged cache: {self.slots} slots over pools [{pools}] "
                 f"~= {self.dense_equiv_slots} dense slots of memory | "
                 f"sharing {'on' if self.cfg.prefix_sharing else 'off'} | "
-                f"{tiers}")
+                f"{tiers}{_recurrent_note(self.axes)}")
 
 
 def make_layout(cfg: CacheConfig, model, slots: int, max_len: int) -> KVLayout:

@@ -29,10 +29,15 @@ One round over the serve engine's slot array (B = slots):
        * KV rows (``k``/``v``/scales/``pos``): entries the verify chain
          wrote past the accepted point are restored from the pre-round
          cache by a ``pos > len0 + n_acc`` mask — this also repairs ring
-         rows that a write past the cache's capacity landed on.  For paged
-         pools the pre-round content is the saved slots, written back where
-         the mask holds (the reference mixes whole-row views and scatters
-         them back; only the appended slots can differ);
+         rows that a write past the cache's capacity landed on (the
+         hybrid's local-window ring).  For paged pools the pre-round
+         content is the saved slots, written back where the mask holds (the
+         reference mixes whole-row views and scatters them back; only the
+         appended slots can differ);
+       * recurrent states (``SSMState`` / ``RGLRUState``: the SSM, RG-LRU
+         and conv states): no length arithmetic can repair a state, so every
+         verify substep's state is kept (``snapshot``) and each slot takes
+         the one at its ``n_acc``, bit for bit;
        * inactive rows keep their exact pre-round state (the engine's
          masking invariant).
 
@@ -65,11 +70,35 @@ def _gather_substep(stacked: torch.Tensor, n_acc: torch.Tensor, ax: int) -> torc
     return torch.take_along_dim(stacked, idx, dim=0)[0]
 
 
+def _is_kv(node) -> bool:
+    """Cache nodes of either layout — left out of the snapshots, rolled back
+    by the pos-mask select rather than the substep stack."""
+    return isinstance(node, (KVCache, PagedKVCache))
+
+
 def snapshot(state: DecodeState) -> DecodeState:
     """The rollback payload of one verify substep: every leaf except the KV
     caches (those roll back via length arithmetic + the pos-mask select, so
-    keeping them per substep would be k+1 copies of decode memory)."""
-    return DecodeState(caches={}, position=state.position, enc_out=state.enc_out)
+    keeping them per substep would be k+1 copies of decode memory) — the
+    position and the recurrent states."""
+    return DecodeState(
+        caches={key: nodes for key, nodes in state.caches.items() if not _is_kv(nodes[0])},
+        position=state.position, enc_out=state.enc_out)
+
+
+def _roll_state(axn, s0, snaps: list, n_acc: torch.Tensor, active: torch.Tensor):
+    """A recurrent-state node rolled back: per slot, the verify substep's
+    state at ``n_acc`` (from the stack of ``snaps``, one node per substep);
+    inactive rows keep ``s0``."""
+    def field(name):
+        old = getattr(s0, name)
+        if old is None:
+            return None
+        ax = getattr(axn, name)
+        stacked = torch.stack([getattr(n, name) for n in snaps])
+        return _sel(ax, _gather_substep(stacked, n_acc, ax), old, active)
+
+    return type(s0)(*[field(f.name) for f in dataclasses.fields(s0)])
 
 
 def _roll_kv(axn: KVCache, c0: KVCache, cf: KVCache, n_acc: torch.Tensor,
@@ -138,14 +167,16 @@ def rollback(axes: DecodeState, state0: DecodeState, state_fin: DecodeState,
     """One rollback-select over the whole decode state (``saved``: the
     paged nodes' pre-round slots, ``serve.paged.save_pools``; a dense
     state needs none)."""
-    def roll(axn, c0, cf):
+    def roll(key, li, axn, c0, cf):
         if isinstance(c0, PagedKVCache):
             return _roll_paged(axn, c0, cf, n_acc, active, saved[id(c0)])
-        return _roll_kv(axn, c0, cf, n_acc, active)
+        if isinstance(c0, KVCache):
+            return _roll_kv(axn, c0, cf, n_acc, active)
+        return _roll_state(axn, c0, [s.caches[key][li] for s in snaps], n_acc, active)
 
     caches = {
-        key: [roll(axn, c0, cf)
-              for axn, c0, cf in zip(axes.caches[key], layers, state_fin.caches[key])]
+        key: [roll(key, li, axn, c0, cf) for li, (axn, c0, cf) in enumerate(
+            zip(axes.caches[key], layers, state_fin.caches[key]))]
         for key, layers in state0.caches.items()}
     stacked = torch.stack([s.position for s in snaps])
     position = _sel(axes.position, _gather_substep(stacked, n_acc, axes.position),

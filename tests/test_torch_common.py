@@ -61,11 +61,12 @@ def numpy_params(jmodel, seed: int):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def make_pair(policy_name: str, kv_dtype: str = "bfloat16", seed: int = 0, **over):
+def make_pair(policy_name: str, kv_dtype: str = "bfloat16", seed: int = 0, *,
+              arch: str = ARCH, **over):
     tpol, jpol, _ = POLICY_CASES[policy_name]
-    jcfg = dataclasses.replace(j_get_smoke_config(ARCH).with_policy(jpol),
+    jcfg = dataclasses.replace(j_get_smoke_config(arch).with_policy(jpol),
                                kv_cache_dtype=kv_dtype, **over)
-    tcfg = dataclasses.replace(get_smoke_config(ARCH).with_policy(tpol),
+    tcfg = dataclasses.replace(get_smoke_config(arch).with_policy(tpol),
                                kv_cache_dtype=kv_dtype, **over)
     jmodel, tmodel = j_build_model(jcfg), build_model(tcfg, device="cpu")
     tree = numpy_params(jmodel, seed)

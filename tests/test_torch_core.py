@@ -111,6 +111,21 @@ def test_split_limbs_doublef32_lo_injection_bit_equal(rng, k):
     assert np.array_equal(_bits(rec), _bits(np.asarray(jlimb.reconstruct(jlimb.split_limbs(jd, k)))))
 
 
+@pytest.mark.parametrize("rounding", ["rne", "grte"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_split_limbs_f32_equals_the_reference_limbs_and_keeps_its_operand(rng, k, rounding):
+    """The f32 limbs the limb algebra multiplies (made one at a time, the
+    residual updated in place) are the reference's bf16 limbs upcast, bit
+    for bit, and the operand is left as it was."""
+    x = rng.standard_normal((17, 40)).astype(np.float32)
+    want = np.asarray(jlimb.split_limbs(jnp.asarray(x), k, rounding).astype(jnp.float32))
+    t = torch.from_numpy(x.copy())
+    got = tlimb.split_limbs_f32(t, k, rounding)
+    assert len(got) == k and all(li.dtype == torch.float32 for li in got)
+    assert np.array_equal(_bits(want), _bits(torch.stack(got).numpy()))
+    assert np.array_equal(t.numpy(), x)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 6])
 def test_limb_product_terms_equal(k):
     assert jlimb.limb_product_terms(k) == tlimb.limb_product_terms(k)

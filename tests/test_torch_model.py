@@ -51,18 +51,29 @@ from test_torch_common import (
 )
 
 def test_configs_equal_field_by_field():
-    for make_t, make_j in ((get_smoke_config, j_get_smoke_config),):
-        t, j = make_t(ARCH), make_j(ARCH)
-        for f in dataclasses.fields(t):
-            if f.name == "policy":
-                continue
-            assert getattr(t, f.name) == getattr(j, f.name), f.name
+    from repro.configs import get_config as j_get_config
+
+    for arch in (ARCH, "mamba2-2.7b", "recurrentgemma-9b"):
+        for make_t, make_j in ((get_smoke_config, j_get_smoke_config),
+                               (get_config, j_get_config)):
+            t, j = make_t(arch), make_j(arch)
+            for f in dataclasses.fields(t):
+                if f.name == "policy":
+                    continue
+                assert getattr(t, f.name) == getattr(j, f.name), (arch, f.name)
     full = get_config(ARCH)
     assert (full.n_layers, full.d_model, full.n_heads, full.d_ff, full.vocab,
             full.qkv_bias) == (24, 1024, 16, 2816, 151936, True)
+    ssm = get_config("mamba2-2.7b")
+    assert (ssm.family, ssm.n_layers, ssm.d_model, ssm.ssm_state, ssm.vocab) == (
+        "ssm", 64, 2560, 128, 50280)
+    hyb = get_config("recurrentgemma-9b")
+    assert (hyb.family, hyb.n_layers, hyb.d_model, hyb.d_ff, hyb.vocab, hyb.local_window,
+            hyb.tie_embeddings) == ("hybrid", 38, 4096, 12288, 256000, 2048, False)
     assert sorted(PRESETS) == sorted(J_POLICIES)
+    # the families still to port keep raising
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("mamba2-2.7b")
+        get_config("phi3.5-moe-42b-a6.6b")
 
 
 def test_params_from_jax_keeps_layout_and_port_init_matches_it():
@@ -76,8 +87,12 @@ def test_params_from_jax_keeps_layout_and_port_init_matches_it():
         assert v.dtype == torch.float32 and v.device.type == "cpu"
     w = tparams["layers"]["seg0_dense"]["mlp"]["up"]["w"]
     assert tuple(w.shape) == (4, 128, 256)  # (layers, d_in, d_out): used as x @ w
-    with pytest.raises(NotImplementedError, match="dense family"):
-        params_from_jax({"layers": {"seg0_moe": {}}}, device="cpu")
+    # moe (a dense segment then a moe one) and enc-dec trees are refused;
+    # the ssm and hybrid trees convert (test_torch_families)
+    with pytest.raises(NotImplementedError, match="dense, ssm and hybrid"):
+        params_from_jax({"layers": {"seg0_dense": {}, "seg1_moe": {}}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        params_from_jax({"layers": {"seg0_dec": {}}, "enc_layers": {}}, device="cpu")
     with pytest.raises(RuntimeError, match="found no GPU"):
         if torch.cuda.is_available():
             raise RuntimeError("found no GPU (skipped: a GPU is present)")
