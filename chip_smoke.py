@@ -21,8 +21,13 @@ mode-map kernel), the conditioned hot/cold workload and a traced run
 (Chrome trace, profiler), then the recurrent families: ``mamba2-2.7b`` at
 full width and depth (``serve_ssm``) and ``recurrentgemma-9b`` at full
 width and depth, with its speculative, paged and ring-wrap arms at cut
-depths (``serve_hybrid``), checking what comes out.  The limb and mode-map
-kernels are also held and timed at the hybrid's GEMM shapes.  The engine runs its
+depths (``serve_hybrid``), then the remaining families: Phi-3.5-MoE at full
+width cut to 8 layers, plain, modal, speculative and paged
+(``serve_moe``), the dense configs qwen1.5-4b and phi3-mini at full depth
+and command-r+ at one layer (``serve_configs``), and Whisper (enc-dec) and
+InternVL2 (VLM) through the model's own entry points (``multimodal``),
+checking what comes out.  The limb and mode-map kernels are also held and
+timed at those models' GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
 ``serve_spec`` and ``serve_tenants`` also serve eagerly (``graphs.eager()``)
@@ -35,8 +40,9 @@ prints any result.
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
 ``tune``, ``serve_spec``, ``serve_paged`` and ``serve_tenants`` phases
-always run at full depth, and ``serve_ssm`` and ``serve_hybrid`` at the
-depths their docstrings give).
+always run at full depth, and ``serve_ssm``, ``serve_hybrid``,
+``serve_moe``, ``serve_configs`` and ``multimodal`` at the depths their
+docstrings give).
 """
 from __future__ import annotations
 
@@ -92,6 +98,7 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: E402
+from repro_torch.models.moe import capacity_for  # noqa: E402
 from repro_torch.obs import TraceConfig, span_violations, validate_chrome  # noqa: E402
 from repro_torch.plan import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -143,7 +150,7 @@ DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + 
 PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
           "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
-          "serve_ssm", "serve_hybrid")
+          "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal")
 #: the recurrent families' models (full width; see their phases for depth)
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-9b"
@@ -151,6 +158,44 @@ HYBRID_ARCH = "recurrentgemma-9b"
 #: prefill): wq / wo, wk / wv (MQA: one KV head of 256), the MLP's gate / up,
 #: its down
 HYBRID_KN = ((4096, 4096), (4096, 256), (4096, 12288), (12288, 4096))
+#: the multimodal phase: Whisper's encoder frames (30 s of audio),
+#: InternVL2's patch embeddings per image (its config's n_vision_tokens), the
+#: prompt and the greedy tokens after it
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "internvl2-1b"
+WHISPER_FRAMES, VLM_PATCHES = 1500, 256
+MM_PROMPT, MM_NEW = 8, 16
+#: ``apply``'s decoder rows in the multimodal check: the prompt and the
+#: tokens fed back
+MM_APPLY = MM_PROMPT + MM_NEW - 1
+#: family -> (the M its phase gives the weight GEMMs through pmm, their (K,
+#: N)), beside the hybrid's: Phi-3.5-MoE's attention (its experts are general
+#: einsums), the dense MLPs and attention of qwen1.5-4b, phi3-mini and
+#: command-r+ (M = 4 decode, 48 prefill); Whisper's attention and GELU MLP
+#: (M = 1 decode, the prompt, ``apply``'s decoder, the encoder's frames, which
+#: every call's cross-attention K / V projects too) and InternVL2's attention
+#: (14 query heads, 2 KV heads of 64) and SwiGLU MLP (M = 1 decode, the
+#: patches and the prompt, the same in ``apply``)
+FAMILY_SHAPES = {
+    "recurrentgemma-9b": (MAIN_M, HYBRID_KN),
+    "phi3.5-moe-42b-a6.6b": (MAIN_M, ((4096, 4096), (4096, 1024))),
+    "qwen1.5-4b": (MAIN_M, ((2560, 2560), (2560, 6912), (6912, 2560))),
+    "phi3-mini-3.8b": (MAIN_M, ((3072, 3072), (3072, 8192), (8192, 3072))),
+    "command-r-plus-104b": (MAIN_M, ((12288, 12288), (12288, 1024), (12288, 33792),
+                                     (33792, 12288))),
+    WHISPER_ARCH: ((1, MM_PROMPT, MM_APPLY, WHISPER_FRAMES),
+                   ((1024, 1024), (1024, 4096), (4096, 1024))),
+    VLM_ARCH: ((1, VLM_PATCHES + MM_PROMPT, VLM_PATCHES + MM_APPLY),
+               ((896, 896), (896, 128), (896, 4864), (4864, 896))),
+}
+#: the MoE phase's model and its depth cut: 8 of Phi-3.5-MoE's 32 layers
+#: (5.03 GB of f32 experts and 0.17 GB of attention a layer: ~42.7 GB with the
+#: embeddings; all 32 layers would be ~167 GB, more than the card holds)
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_CUT_LAYERS = 8
+#: the dense configs served in serve_configs (arch -> depth; None = full):
+#: command-r+ at one of its 64 layers (its two 256000 x 12288 embeddings are
+#: 25.2 GB, the logits' M16 limbs another 25.2 GB, a layer 6.3 GB)
+CONFIG_DEPTHS = {"qwen1.5-4b": None, "phi3-mini-3.8b": None, "command-r-plus-104b": 1}
 #: depth cuts of the hybrid phase's arms: the speculative and paged arms run
 #: two (rec, rec, attn_local) supergroups and the two remainder layers; the
 #: ring-wrap part one supergroup, over a shared prompt prefix of
@@ -414,6 +459,37 @@ def check_kernels(gen) -> dict:
         check(torch.equal(tile_matmul_mode(a, b, Mode.M24, splits=1, **blk), one),
               f"uniform map != limb kernel at {(m, k, n)} S=1")
         n_cases += 3
+    # the other families' shapes (serve_moe, serve_configs, multimodal) at
+    # the M their phases give, with fewer cases a shape: k = 2 and 3 against
+    # the plain version, uniform map == limb kernel and runtime (host int,
+    # device scalar) == static bitwise, one mixed 2-D map against its plain
+    # version
+    family_shapes = sorted({(m, k, n) for fam, (m_rows, kn) in FAMILY_SHAPES.items()
+                            if fam != HYBRID_ARCH for m in m_rows for (k, n) in kn})
+    for m, k, n in family_shapes:
+        a, b = _rand(gen, m, k), _rand(gen, k, n)
+        grid, (bm, bn, bk) = tile_grid(m, n, k)
+        s = planned_splits(m, k, n)
+        splits[f"{m}x{k}x{n}"] = s
+        for limbs in (2, 3):
+            got = limb_matmul(a, b, limbs)
+            hold("limb_matmul", got, limb_matmul_plain(a, b, limbs, bk=bk, splits=s),
+                 f"{(m, k, n)} k={limbs} S={s}")
+            uni = tile_matmul_mode(a, b, Mode(limbs))
+            rt_dev = tile_matmul_runtime(
+                a, b, torch.tensor(limbs, dtype=torch.int32, device="cuda"))
+            torch.cuda.synchronize()
+            check(torch.equal(uni, got), f"uniform map != limb kernel at {(m, k, n)} k={limbs}")
+            check(torch.equal(tile_matmul_runtime(a, b, limbs), uni),
+                  f"runtime(host int) != static at {(m, k, n)} mode={limbs}")
+            check(torch.equal(rt_dev, uni), f"runtime(device scalar) != static at {(m, k, n)}")
+            n_cases += 4
+        mode_map = _mixed_map(grid[:2], gen_cpu)
+        hold("tile_matmul", tile_matmul(a, b, mode_map),
+             tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk, splits=s),
+             f"{(m, k, n)} map{tuple(grid[:2])} S={s}")
+        n_cases += 1
+        del a, b
     # a finer map grid than the default, so one launch holds many map tiles
     a, b = _rand(gen, 48, 1024), _rand(gen, 1024, 1024)
     grid, (bm, bn, bk) = tile_grid(48, 1024, 1024, bm=16, bn=64, bk=128)
@@ -656,7 +732,7 @@ def time_kernels(gen) -> dict:
                                      ms_splits1=ms1, enqueue_ms_splits1=enqueue1,
                                      plain_ms=p_ms, **common))
             del bs, bs16
-    rows += time_hybrid_kernels(gen)
+    rows += time_family_kernels(gen)
     # quantize pre-pass shapes: the activation and the weight of a site
     for shape in ((4, 1024), (1024, 2816)):
         nbytes = 4 * shape[0] * shape[1]
@@ -680,15 +756,20 @@ def time_kernels(gen) -> dict:
                                 "datasheet_flop_per_s": F32_FLOPS}}
 
 
-def time_hybrid_kernels(gen) -> list[dict]:
-    """The limb and mode-map kernels at the hybrid's GEMM shapes (M = 4 and
-    48 by HYBRID_KN, k = 2 and 3, the planned K split), beside the bound,
-    the plain version and one f32 ``torch.matmul``; fewer samples than the
-    main shapes' (no unsplit run)."""
+def time_family_kernels(gen) -> list[dict]:
+    """The limb and mode-map kernels at the other families' GEMM shapes (by
+    FAMILY_SHAPES, k = 2 and 3, the planned K split), beside the
+    bound, the plain version and one f32 ``torch.matmul``; fewer samples
+    than the main shapes' (no unsplit run).  Each row names the first
+    family the shape is timed for."""
     rows = []
     timed = functools.partial(time_ms, warmup=2, reps=5, samples=3)
-    for m in MAIN_M:
-        for (k, n) in HYBRID_KN:
+    seen = set()
+    for fam, (m_rows, kn) in FAMILY_SHAPES.items():
+        for m, (k, n) in ((m, kn_) for m in m_rows for kn_ in kn):
+            if (m, k, n) in seen:
+                continue
+            seen.add((m, k, n))
             a = _rand(gen, m, k)
             n_rot = n_rotations(4 * k * n)
             bs = [_rand(gen, k, n) for _ in range(n_rot)]
@@ -706,7 +787,7 @@ def time_hybrid_kernels(gen) -> list[dict]:
                         ("limb_matmul", lambda i: limb_matmul(a, bs[i], limbs), plain),
                         ("tile_matmul", lambda i: tile_matmul(a, bs[i], uniform), tile_plain)):
                     ms, enqueue = timed(fn, n_rot)
-                    rows.append(dict(kernel=kernel, via=kernel, hybrid=True, m=m, k=k, n=n,
+                    rows.append(dict(kernel=kernel, via=kernel, family=fam, m=m, k=k, n=n,
                                      limbs=limbs, splits=s, ms=ms, enqueue_ms=enqueue,
                                      plain_ms=p_ms, bound_ms=bound, bound_by=by,
                                      library_ms=lib32, library_bf16_ms=None))
@@ -867,7 +948,7 @@ def replay_event_ms(fn, reps: int = 5) -> float:
 
 
 def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
-                   max_len: int = 96, bound_logits: bool = True) -> dict:
+                   max_len: int = 96, bound_logits: bool = True, sites=None) -> dict:
     """Where one decode step and one prefill spend their time.  The decode
     step is the engine's compiled step on a 4-slot engine whose rows hold
     24 cached tokens, run captured (one graph replay) and eagerly
@@ -880,7 +961,10 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
     state's copy-back (the masked merge and ``copy_`` of every leaf that
     ends each step).  Beside it: one 48-token prefill (eager), the logits
     site alone (bound to a host int and to a device scalar, unless
-    ``bound_logits`` is false), and kernel launches per call."""
+    ``bound_logits`` is false), and kernel launches per call.  ``sites``: a
+    context factory yielding the CUDA event pairs some sites record (as
+    ``moe_expert_events``); three more eager steps run inside it, and the
+    pairs' summed device ms per step is ``eager_sites``."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     vocab, d = model.cfg.vocab, model.cfg.d_model
     prompt = torch.randint(0, vocab, (1, prompt_len), generator=gen, device="cuda")
@@ -937,6 +1021,14 @@ def step_breakdown(model, params, slots: int = 4, prompt_len: int = 48,
             "splitk_reduce_device_ms_per_step":
                 sum(e.device_time_total for e in reduce) / steps / 1e3,
         }
+    if sites is not None:
+        with sites() as pairs:
+            for _ in range(steps):
+                eager_step()
+        torch.cuda.synchronize()
+        out["eager_sites"] = {
+            "decode_steps": steps, "calls_per_step": len(pairs) / steps,
+            "device_ms_per_step": sum(a.elapsed_time(b) for a, b in pairs) / steps}
     # the logits site bound to a run-time mode: as a host int it runs the
     # mode's own products; as a device scalar (what a captured modal step
     # binds) it makes all six products of the ladder's top and selects
@@ -2263,6 +2355,310 @@ def phase_serve_hybrid(params_cache):
     return counts
 
 
+@contextlib.contextmanager
+def moe_expert_events():
+    """Every ``"moe_expert"`` einsum of ``moe_apply`` bracketed by CUDA
+    events while the context is open: yields the list of (start, end) pairs
+    the calls record.  The wrapper replaces the name ``pein`` in
+    ``models.moe`` and calls the original unchanged; an eager step queues
+    each product's kernels far ahead of the card (a split of a 1.68 GB
+    weight takes milliseconds), so a pair brackets those kernels' device
+    time."""
+    from repro_torch.models import moe as moe_lib
+
+    inner = moe_lib.pein
+    pairs: list = []
+
+    def pein(eq, a, b, op, policy):
+        if op != "moe_expert":
+            return inner(eq, a, b, op, policy)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(eq, a, b, op, policy)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    moe_lib.pein = pein
+    try:
+        yield pairs
+    finally:
+        moe_lib.pein = inner
+
+
+def phase_serve_moe(params_cache):
+    """Phi-3.5-MoE at full width (d_model 4096, 32 heads, 8 KV heads, 16
+    experts of d_ff 6400, top-2, vocab 32064 untied), cut to MOE_CUT_LAYERS
+    of its 32 layers, in four arms.  The rows of a MoE decode step share
+    expert capacity (one slot an expert at 4 slots), so no arm holds batched
+    tokens to solo ones or speculative tokens to plain ones (the reference's
+    engine differs there too); each arm holds captured to eager:
+
+    (a) M16 ``pallas``, 4 slots, 8 ragged requests (prompts <= 48, 16 new):
+        equal tokens, one capture, at most one build, the limb kernel
+        launched (attention projections), the engine freed at its last
+        reference; the decode step's breakdown and the expert products'
+        share of it, by CUDA events around those products in eager steps
+        (``moe_expert_events``);
+    (b) M24 + SLO 0.05 with a forced shift: equal tokens and mode
+        timelines, captures {2}, one build;
+    (c) speculation k = 3, draft shift 2: equal speculative tokens, the
+        acceptance;
+    (d) the paged cache (pages of 16, 8 requests over a shared 32-token
+        prefix) against the dense one: paged captured == paged eager, and
+        whether paged == dense.  Two mechanisms let them differ (ROADMAP
+        Queue C): a prompt's prefill routes the whole prompt as one group,
+        so a shared prefix page holds K/V that another request's suffix
+        helped route; and an inactive row routes with the live ones,
+        reading the scratch page in the paged layout, its frozen cache in
+        the dense one."""
+    release()
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    model = full_width_model(policy, MOE_CUT_LAYERS, arch=MOE_ARCH)
+    params = params_cache(model)
+    out = {"param_gb": param_gb(params), "layers": MOE_CUT_LAYERS,
+           "depth_cut": f"{MOE_CUT_LAYERS} of {get_config(MOE_ARCH).n_layers} layers"}
+    build.library()
+    reqs = ragged_requests(8, model.cfg.vocab, 48, 16, np.random.default_rng(30))
+    cfg = ServeConfig(batch_slots=4, max_len=96)
+    # (a)
+    cap = served(model, params, cfg, reqs)
+    eag = served(model, params, cfg, reqs, eager_run=True)
+    check_same_tokens(eag["outs"], cap["outs"], "serve_moe (a) eager against captured")
+    check(cap["captures"] == 1, f"serve_moe (a) captured {cap['captures']} graphs")
+    check(build.BUILD_COUNT <= 1, f"build count {build.BUILD_COUNT} > 1")
+    check(cap["counts"]["limb_matmul"] > 0, "serve_moe launched the limb kernel no time")
+    check(cap["counts"]["tile_matmul"] == 0, "a static policy reached the mode-map kernel")
+    check(cap["freed"]["reserved_freed_gb"] > 0, "the captured engine's pool was not freed")
+    counts = dict(cap["counts"])
+    breakdown = step_breakdown(model, params, bound_logits=False, sites=moe_expert_events)
+    expert_ms = breakdown["eager_sites"]["device_ms_per_step"]
+    check(breakdown["eager_sites"]["calls_per_step"] == 3 * MOE_CUT_LAYERS,
+          f"serve_moe: {breakdown['eager_sites']['calls_per_step']} expert products a step")
+    moe_layers = [ly for ly in model.layers if ly.kind == "moe"]
+    gate = params[moe_layers[0].top][moe_layers[0].key]["moe"]["gate"]
+    moe = {"capacity_per_expert": capacity_for(4, model.cfg), "moe_layers": len(moe_layers),
+           "expert_weight_gb_per_layer": 3 * gate[0].numel() * 4 / 1e9,
+           "expert_products_device_ms_per_step": expert_ms,
+           "expert_share_of_replay": expert_ms / breakdown["replay_event_ms"],
+           "expert_share_of_eager_kernel_time":
+               expert_ms / breakdown["eager"]["device_ms_per_decode_step"]}
+    out["a"] = dict(policy=policy.describe(), launches=cap["counts"], captured=cap["summary"],
+                    eager=eag["summary"], captured_tokens_equal_eager=True,
+                    freed_between_engines={"captured": cap["freed"], "eager": eag["freed"]},
+                    breakdown=breakdown, moe_experts=moe)
+    del cap, eag
+    release()
+    # (b)
+    m_policy = PrecisionPolicy(default=Mode.M24, impl="pallas")
+    m_model = model.with_policy(m_policy)
+    m_cfg = ServeConfig(batch_slots=4, max_len=96,
+                        adapt=AdaptConfig(slo=SLO(max_err=0.05), adapt_every=2))
+    holder = {}
+    holder["eng"], m_outs, m_counts, m_wall, m_captures = adapt_run(
+        m_model, params, m_cfg, reqs[:4], eager_run=False, time_steps=True)
+    eng = holder["eng"]
+    holder["eager"], e_outs, _, e_wall, e_captures = adapt_run(
+        m_model, params, m_cfg, reqs[:4], eager_run=True)
+    check_same_tokens(e_outs, m_outs, "serve_moe (b) eager against captured")
+    check(eng.metrics.mode_timeline == holder["eager"].metrics.mode_timeline,
+          "serve_moe (b): the captured and eager mode timelines differ")
+    check(m_captures == {2} and eng.graph_capture_count == 2,
+          f"serve_moe (b): capture counts {sorted(m_captures)} across shifts (want only 2)")
+    check(e_captures == {0}, f"serve_moe (b): the eager run captured {sorted(e_captures)}")
+    check(m_counts["tile_matmul"] > 0, "serve_moe (b) launched the mode-map kernel no time")
+    check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 after mode shifts")
+    out["b"] = dict(policy=m_policy.describe(), launches=m_counts,
+                    graph_capture_counts_seen=sorted(m_captures),
+                    captured_tokens_equal_eager=True,
+                    mode_timeline=[[int(st), lab] for st, lab in eng.metrics.mode_timeline],
+                    probes=len(eng.controller.history), replay=eng._step_graph.summary(),
+                    **serve_summary(eng, m_outs, m_wall),
+                    eager=serve_summary(holder["eager"], e_outs, e_wall))
+    for k, v in m_counts.items():
+        counts[k] = counts.get(k, 0) + v
+    del eng
+    out["b"]["freed"] = retire(holder, "eng")
+    out["b"]["freed_eager"] = retire(holder, "eager")
+    del m_model
+    release()
+    # (c)
+    spec_cfg = dataclasses.replace(cfg, spec=SpecConfig(k=3, draft_shift=2))
+    spec = served(model, params, spec_cfg, reqs)
+    spec_e = served(model, params, spec_cfg, reqs, eager_run=True)
+    check_same_tokens(spec_e["outs"], spec["outs"],
+                      "serve_moe (c) speculative eager against captured")
+    check(spec["acceptance"] is not None and spec["acceptance"] > 0,
+          f"serve_moe (c): acceptance {spec['acceptance']}")
+    out["c"] = dict(k=3, draft_shift=2, captured_tokens_equal_eager=True,
+                    acceptance=spec["acceptance"],
+                    verify_steps_per_token=spec["verify_steps_per_token"],
+                    captured=spec["summary"], eager=spec_e["summary"],
+                    tok_per_s_ratio_to_a=(spec["summary"]["tok_per_s"]
+                                          / out["a"]["captured"]["tok_per_s"]),
+                    freed=[spec["freed"], spec_e["freed"]])
+    for k, v in spec["counts"].items():
+        counts[k] = counts.get(k, 0) + v
+    release()
+    # (d)
+    preqs = prefix_traffic(model.cfg.vocab, seed=31, n=8)
+    pcfg = dataclasses.replace(cfg, cache=CacheConfig(layout="paged", page_size=16))
+    dense = served(model, params, cfg, preqs)
+    paged = served(model, params, pcfg, preqs)
+    paged_e = served(model, params, pcfg, preqs, eager_run=True)
+    check_same_tokens(paged_e["outs"], paged["outs"], "serve_moe (d) paged eager against captured")
+    check(paged["pages"]["shared_hits"] > 0, "serve_moe (d): no prefix hit")
+    differ = [r.rid for r in preqs if paged["outs"][r.rid] != dense["outs"][r.rid]]
+    out["d"] = dict(paged_tokens_equal_dense=not differ, rids_paged_differs_from_dense=differ,
+                    paged_vs_dense_note=(
+                        None if not differ else
+                        "allowed: a shared prefix page holds K/V routed with another "
+                        "request's suffix (a prefill routes the whole prompt as one group), "
+                        "and inactive rows route with the live ones (dense: their frozen "
+                        "cache, paged: the scratch page); ROADMAP Queue C, "
+                        "tests/test_torch_moe_engine.py::"
+                        "test_paged_and_dense_differ_only_where_the_reference_does"),
+                    paged_tokens={r.rid: paged["outs"][r.rid] for r in preqs if r.rid in differ},
+                    dense_tokens={r.rid: dense["outs"][r.rid] for r in preqs if r.rid in differ},
+                    captured_tokens_equal_eager=True, pages=paged["pages"],
+                    dense=dense["summary"], paged=paged["summary"],
+                    paged_eager=paged_e["summary"])
+    del params, model
+    release()
+    c = get_config(MOE_ARCH)
+    emit("serve_moe", arch=MOE_ARCH, d_model=c.d_model, heads=c.n_heads, kv_heads=c.n_kv_heads,
+         experts=c.moe_experts, top_k=c.moe_top_k, d_ff=c.d_ff, vocab=c.vocab,
+         launches=counts, build_count=build.BUILD_COUNT, **out)
+    return counts
+
+
+def phase_serve_configs(params_cache):
+    """The dense configs the port gained with the remaining families, each at
+    full width (CONFIG_DEPTHS: qwen1.5-4b and phi3-mini at full depth,
+    command-r+ at one layer), M16 ``pallas``, 4 slots, 4 requests of 8 new
+    tokens: captured == eager tokens, one capture, the limb kernel
+    launched; each engine's peak memory."""
+    counts: dict = {}
+    out = {}
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    for i, (arch, depth) in enumerate(CONFIG_DEPTHS.items()):
+        release()
+        model = full_width_model(policy, depth, arch=arch)
+        params = params_cache(model)
+        reqs = ragged_requests(4, model.cfg.vocab, 48, 8, np.random.default_rng(40 + i))
+        reqs = [dataclasses.replace(r, max_new=8) for r in reqs]
+        cfg = ServeConfig(batch_slots=4, max_len=64)
+        cap = served(model, params, cfg, reqs)
+        eag = served(model, params, cfg, reqs, eager_run=True)
+        check_same_tokens(eag["outs"], cap["outs"], f"serve_configs {arch} eager against captured")
+        check(cap["captures"] == 1, f"serve_configs {arch}: {cap['captures']} captures")
+        check(cap["counts"]["limb_matmul"] > 0, f"serve_configs {arch}: no limb kernel launched")
+        c = model.cfg
+        out[arch] = dict(layers=c.n_layers, full_layers=get_config(arch).n_layers,
+                         d_model=c.d_model, heads=c.n_heads, kv_heads=c.n_kv_heads,
+                         d_ff=c.d_ff, vocab=c.vocab, param_gb=param_gb(params),
+                         captured_tokens_equal_eager=True, launches=cap["counts"],
+                         captured=cap["summary"], eager=eag["summary"],
+                         peak_device_mem_gb=max(cap["summary"]["peak_device_mem_gb"],
+                                                eag["summary"]["peak_device_mem_gb"]))
+        for k, v in cap["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        del cap, eag, params, model
+    release()
+    emit("serve_configs", policy=policy.describe(), build_count=build.BUILD_COUNT,
+         launches=counts, configs=out)
+    return counts
+
+
+def greedy_decode(model, params, prompt: torch.Tensor, n_new: int, max_len: int,
+                  frames=None, pixel_embeds=None):
+    """Greedy tokens through the model's entry points: ``prefill_encoder``
+    (enc-dec), a prefill (with the patch embeddings, VLM), then ``n_new - 1``
+    single-token ``decode_step`` calls.  Returns (tokens, every logits row
+    the calls produced, concatenated)."""
+    state = model.init_decode_state(prompt.shape[0], max_len, per_slot=True)
+    if frames is not None:
+        state = model.prefill_encoder(params, frames, state)
+    logits, state = model.decode_step(params, prompt, state, pixel_embeds=pixel_embeds)
+    rows, toks = [logits], [torch.argmax(logits[:, -1], dim=-1)]
+    for _ in range(n_new - 1):
+        logits, state = model.decode_step(params, toks[-1][:, None], state)
+        rows.append(logits)
+        toks.append(torch.argmax(logits[:, -1], dim=-1))
+    return torch.stack(toks, 1), torch.cat(rows, 1)
+
+
+def phase_multimodal(params_cache):
+    """The two families no launcher serves, driven eagerly through the
+    model's entry points as the reference drives them: whisper-medium (24
+    encoder + 24 decoder layers, d_model 1024, vocab 51865) over
+    WHISPER_FRAMES frame embeddings, and internvl2-1b (24 layers, d_model
+    896, vocab 151655) with VLM_PATCHES patch embeddings, both at full width
+    and depth, M16 ``pallas``, from a seed: MM_NEW greedy tokens after an
+    MM_PROMPT-token prompt, and ``apply`` over the prompt and the tokens fed
+    back against the prefill-plus-steps logits, within one bf16 quantum of
+    their scale (the decode steps read the bf16 KV cache); the limb kernel
+    launched.  Both sides of that check run the same kernel: the kernels
+    phase holds it against its plain version at these GEMM shapes and M
+    (FAMILY_SHAPES), which this phase checks against the configs."""
+    counts: dict = {}
+    out = {}
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        release()
+        model = full_width_model(policy, arch=arch)
+        params = params_cache(model)
+        c = model.cfg
+        kn = [(c.d_model, c.n_heads * c.head_dim), (c.d_model, c.n_kv_heads * c.head_dim),
+              (c.d_model, c.d_ff), (c.d_ff, c.d_model)]
+        check(set(FAMILY_SHAPES[arch][1]) == set(kn),
+              f"multimodal {arch}: the kernels phase held other GEMM shapes than {kn}")
+        check(c.family != "vlm" or c.n_vision_tokens == VLM_PATCHES,
+              f"multimodal {arch}: {c.n_vision_tokens} patches, not {VLM_PATCHES}")
+        gen = torch.Generator(device="cuda").manual_seed(50)
+        prompt = torch.randint(0, c.vocab, (1, MM_PROMPT), generator=gen, device="cuda")
+        extra = {}
+        if c.family == "encdec":
+            extra["frames"] = torch.randn((1, WHISPER_FRAMES, c.d_model), generator=gen,
+                                          device="cuda") * 0.02
+        else:
+            extra["pixel_embeds"] = torch.randn((1, c.n_vision_tokens, c.d_model),
+                                                generator=gen, device="cuda") * 0.02
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # the cache holds the patches too (VLM), so nothing wraps
+        max_len = (c.n_vision_tokens if c.family == "vlm" else 0) + 32
+        toks, step_logits = greedy_decode(model, params, prompt, MM_NEW, max_len, **extra)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = build.launch_counts()
+        seq = torch.cat([prompt, toks[:, :-1]], 1)
+        batch = {"tokens": seq, **extra}
+        full, aux = model.apply(params, batch)
+        check(bool(torch.isfinite(step_logits).all()) and bool(torch.isfinite(full).all()),
+              f"multimodal {arch}: non-finite logits")
+        check(tuple(full.shape) == (1, seq.shape[1], c.vocab), f"multimodal {arch}: logits shape")
+        check(bool(((toks >= 0) & (toks < c.vocab)).all()), f"multimodal {arch}: token range")
+        gap = float((full - step_logits).abs().max() / full.abs().max())
+        check(gap <= 2.0**-8, f"multimodal {arch}: apply vs prefill + steps {gap:.3e}")
+        check(launches["limb_matmul"] > 0, f"multimodal {arch}: the limb kernel launched no time")
+        out[arch] = dict(family=c.family, layers=c.n_layers, encoder_layers=c.n_encoder_layers,
+                         d_model=c.d_model, vocab=c.vocab, param_gb=param_gb(params),
+                         extra_rows=(WHISPER_FRAMES if c.family == "encdec"
+                                     else c.n_vision_tokens),
+                         tokens=toks[0].tolist(), apply_vs_steps_gap_over_scale=gap,
+                         tolerance=2.0**-8, launches=launches, decode_s=decode_s,
+                         peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        del params, model, full, step_logits
+    release()
+    emit("multimodal", policy=policy.describe(), build_count=build.BUILD_COUNT,
+         launches=counts, models=out)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
@@ -2299,12 +2695,12 @@ def kernels_line(checks, timing, main_counts) -> dict:
             launches = main_counts[name]
         if "ms_splits1" in main:
             entry.update(splits=main["splits"], ms_splits1=main["ms_splits1"])
-        hybrid = [r for r in rows if r.get("hybrid")]
-        if hybrid:
-            entry["hybrid_shapes"] = [
-                {key: r[key] for key in ("m", "k", "n", "limbs", "splits", "ms", "bound_ms",
-                                         "bound_by", "plain_ms", "library_ms")}
-                for r in hybrid]
+        family = [r for r in rows if r.get("family")]
+        if family:
+            entry["family_shapes"] = [
+                {key: r[key] for key in ("family", "m", "k", "n", "limbs", "splits", "ms",
+                                         "bound_ms", "bound_by", "plain_ms", "library_ms")}
+                for r in family]
         runtime = [r for r in at if r.get("via") == "tile_matmul_runtime"]
         if runtime:
             entry.update(runtime_ms=runtime[0]["ms"], runtime_enqueue_ms=runtime[0]["enqueue_ms"])
@@ -2374,7 +2770,8 @@ def main() -> int:
         phase_tune(params_cache)
     for name, fn in (("serve_spec", phase_serve_spec), ("serve_paged", phase_serve_paged),
                      ("serve_tenants", phase_serve_tenants), ("serve_ssm", phase_serve_ssm),
-                     ("serve_hybrid", phase_serve_hybrid)):
+                     ("serve_hybrid", phase_serve_hybrid), ("serve_moe", phase_serve_moe),
+                     ("serve_configs", phase_serve_configs), ("multimodal", phase_multimodal)):
         if name in phases:
             for kname, c in fn(params_cache).items():
                 if kname in main_counts:

@@ -1,6 +1,5 @@
-"""Registry of the architectures.  Ported: ``qwen1.5-0.5b`` (dense),
-``mamba2-2.7b`` (ssm) and ``recurrentgemma-9b`` (hybrid); the other ids are
-known and raise "not ported yet"."""
+"""Registry of the assigned architectures: every id of the reference's
+registry, each a constant copied from ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
@@ -19,7 +18,6 @@ _MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
-_PORTED = ("qwen1.5-0.5b", "mamba2-2.7b", "recurrentgemma-9b")
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -27,10 +25,6 @@ ARCH_IDS = tuple(_MODULES)
 def get_config(arch: str) -> ArchConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in _PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP Queue A item 11, "
-            f"'Remaining model families'); ported: {_PORTED}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 

@@ -2,12 +2,15 @@
 
 The reference's parameter pytree (``repro.models.lm.LanguageModel.init``)
 keeps the layers of a segment stacked on a leading axis under
-``params["layers"]["seg0_dense"]`` (``"seg0_ssm"`` for Mamba-2), the
-hybrid's supergroup stacked under ``params["super"]`` and its remainder
-layers unstacked under ``params["rem"]``, and its weights as
-``(d_in, d_out)``, used as ``x @ w``.  The port keeps exactly that layout,
-so conversion is a walk that turns every numpy leaf into a float32 tensor on
-the target device — after which both packages compute the same function.
+``params["layers"]["seg{i}_{kind}"]`` (``seg0_dense``, ``seg0_ssm``,
+``seg0_moe``, ``seg0_dense`` + ``seg1_moe`` for Kimi-K2, ``seg0_dec`` beside
+the enc-dec family's stacked ``params["enc_layers"]``), the hybrid's
+supergroup stacked under ``params["super"]`` and its remainder layers
+unstacked under ``params["rem"]``, and its weights as ``(d_in, d_out)``,
+used as ``x @ w`` (expert weights as (E, d_in, d_out)).  The port keeps
+exactly that layout, so conversion is a walk that turns every numpy leaf
+into a float32 tensor on the target device — after which both packages
+compute the same function.
 """
 from __future__ import annotations
 
@@ -18,42 +21,49 @@ import torch
 
 from repro_torch.device import resolve_device
 
-#: the stacked segments of the families ported with a ``params["layers"]``
-#: tree (the hybrid has ``super`` / ``rem`` instead)
-PORTED_SEGMENTS = ({"seg0_dense"}, {"seg0_ssm"})
-#: pattern slots the hybrid's ``super`` / ``rem`` trees may hold
+#: block kinds a ``params["layers"]`` segment may hold, and the hybrid's
+#: ``super`` / ``rem`` pattern slots
+_SEGMENT_KINDS = ("dense", "moe", "ssm", "dec")
 _HYBRID_KINDS = ("rec", "attn_local")
 
 
-def _check_family(tree: dict) -> None:
-    """Refuse the trees of families the port does not run (moe, vlm,
-    enc-dec): their segments, encoder stacks or extra blocks."""
-    if "enc_layers" in tree:
-        raise NotImplementedError("the enc-dec family is not ported (an 'enc_layers' tree)")
+def _kind(key: str, prefix: str) -> str | None:
+    """``seg0_moe`` -> ``moe`` (``prefix`` "seg"), ``l2_attn_local`` ->
+    ``attn_local`` (``prefix`` "l"); None when ``key`` is not so named."""
+    head, _, kind = key.partition("_")
+    if not head.startswith(prefix) or not head[len(prefix):].isdigit():
+        return None
+    return kind
+
+
+def _check_tree(tree: dict) -> None:
+    """Refuse a tree the port's model cannot read: a segment or pattern slot
+    of an unknown block kind, an encoder stack without a decoder segment, or
+    neither ``layers`` nor ``super``."""
     if "layers" in tree:
-        if "super" in tree or "rem" in tree or set(tree["layers"]) not in PORTED_SEGMENTS:
+        kinds = [_kind(key, "seg") for key in tree["layers"]]
+        if "super" in tree or "rem" in tree or not all(k in _SEGMENT_KINDS for k in kinds):
             raise NotImplementedError(
-                f"only the dense, ssm and hybrid families are ported (one "
-                f"'seg0_dense' or 'seg0_ssm' segment, or 'super'/'rem'); got "
-                f"segments {sorted(tree['layers'])}")
+                f"unknown layer segments {sorted(tree['layers'])} (blocks "
+                f"{_SEGMENT_KINDS}, or a hybrid's 'super'/'rem')")
+        if ("enc_layers" in tree) != ("dec" in kinds):
+            raise NotImplementedError(
+                "an enc-dec tree needs both an 'enc_layers' stack and a 'seg0_dec' segment")
         return
     if "super" not in tree:
-        raise NotImplementedError(
-            "only the dense, ssm and hybrid families are ported: the tree has "
-            "neither 'layers' nor 'super'")
+        raise NotImplementedError("the tree has neither 'layers' nor 'super'")
     for top in ("super", "rem"):
         for key in tree.get(top, {}):
-            if key.split("_", 1)[-1] not in _HYBRID_KINDS:
+            if _kind(key, "l") not in _HYBRID_KINDS:
                 raise NotImplementedError(
-                    f"hybrid block {top}/{key}: only {_HYBRID_KINDS} blocks are ported")
+                    f"hybrid block {top}/{key}: only {_HYBRID_KINDS} blocks exist")
 
 
 def params_from_jax(tree: Any, device=None) -> Any:
     """``tree``: the reference's parameter pytree with numpy (or
-    numpy-convertible) leaves, dense, ssm or hybrid family.  Returns the
-    port's parameter dict on ``device`` (None -> the GPU; raises when there
-    is none)."""
-    _check_family(tree)
+    numpy-convertible) leaves, of any family.  Returns the port's parameter
+    dict on ``device`` (None -> the GPU; raises when there is none)."""
+    _check_tree(tree)
     dev = resolve_device(device)
 
     def walk(node):

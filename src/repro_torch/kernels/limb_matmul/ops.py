@@ -47,6 +47,14 @@ THREAD_TILE = (32, 32)
 #: resident thread blocks per SM that ``split_k`` fills: the body uses up to
 #: 255 registers x 128 threads, so two blocks fit an SM's 65,536 registers
 BLOCKS_PER_SM = 2
+#: the longest stretch of K one split sums into its f32 accumulators.  The
+#: accumulation error grows with the stretch: unsplit at K = 33792 (the
+#: command-r+ down projection, 4 x 33792 x 12288, k = 3) the limb kernel lay
+#: 2.15e-6 of scale from the exact limb algebra on the H100, over the 2e-6
+#: the reference holds its kernels to.  Longer walks are split so that no
+#: split sums more than this (every shape of the earlier models has K <=
+#: 12288 and keeps its split)
+MAX_SPLIT_LEN = 16384
 
 
 def tile_grid(
@@ -126,12 +134,15 @@ def gemm_blocks(m: int, n: int, bm: int, bn: int) -> int:
 def split_k(m: int, n: int, kdim: int, *, bm: int, bn: int, bk: int, tk: int,
             sms: int) -> int:
     """Number of K splits for the limb and mode-map kernels: enough to put
-    about ``BLOCKS_PER_SM`` thread blocks on each of ``sms`` SMs, never more
-    than the walk has steps, and 1 once the (M, N) grid alone has more
-    blocks than the card has SMs.  Depends on the problem, the clamped
-    blocks, the K step and the card only — never on the limb count, which
-    keeps uniform map == limb kernel and runtime == static bitwise."""
-    want = BLOCKS_PER_SM * sms // max(gemm_blocks(m, n, bm, bn), 1)
+    about ``BLOCKS_PER_SM`` thread blocks on each of ``sms`` SMs, and enough
+    that no split sums more than ``MAX_SPLIT_LEN`` of K, never more than the
+    walk has steps; 1 once the (M, N) grid alone has more blocks than the
+    card has SMs and K is within ``MAX_SPLIT_LEN``.  Depends on the problem,
+    the clamped blocks, the K step and the card only — never on the limb
+    count, which keeps uniform map == limb kernel and runtime == static
+    bitwise."""
+    want = max(BLOCKS_PER_SM * sms // max(gemm_blocks(m, n, bm, bn), 1),
+               -(-kdim // MAX_SPLIT_LEN))
     return max(1, min(want, k_steps(kdim, bk, tk)))
 
 

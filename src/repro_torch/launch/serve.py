@@ -156,8 +156,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     if cfg.family in ("encdec", "vlm"):
-        raise SystemExit("the launcher serves text-only families (the reference's "
-                         "launcher refuses encdec and vlm too)")
+        raise SystemExit("use examples/ for multimodal drivers on CPU")
     model = build_model(cfg, device=args.device)  # None -> the GPU, or raise
     params = model.init(args.seed)
 

@@ -1,6 +1,6 @@
-"""Shared layers (dense family).  Every contraction routes through the RMPM
-engine (C1): the paper's multi-precision multiplier is the only multiplier
-in the system.
+"""Shared layers (attention, MLPs, KV caches) of every family.  Every
+contraction routes through the RMPM engine (C1): the paper's
+multi-precision multiplier is the only multiplier in the system.
 
 PyTorch idiom: plain functions on tensors and dicts of tensors.  Dense
 cache updates are OUT OF PLACE (clone + indexed write), so a dense state
@@ -350,6 +350,31 @@ def _paged_addr(cache: PagedKVCache, vi: Tensor) -> tuple[Tensor, Tensor]:
     return torch.clamp(pages, min=0).long(), (vi % ps).long()
 
 
+def write_pool_slots(cache: PagedKVCache, pages: Tensor, off: Tensor,
+                     values: dict[str, Tensor | None]) -> None:
+    """``pool[pages, off] = vals`` in place for each pool leaf named in
+    ``values`` (``pages``, ``off``: any equal shape, which leads ``vals``).
+
+    Rows whose table entries are unmapped all write the scratch page, so one
+    indexed write may name a slot several times, and which of those values
+    lands would be left to the device's scheduling.  Every write to a slot
+    carries the value of the LAST write to it instead: the slot then ends
+    as a sequential scatter leaves it, on every device and every run.  The
+    scratch page's content matters to a MoE model: an inactive row reads
+    it, and its hidden state still competes for expert capacity."""
+    ps, n_pages = cache.k_pool.shape[1], cache.k_pool.shape[0]
+    flat = (pages * ps + off).reshape(-1)
+    last = torch.full((n_pages * ps,), -1, dtype=torch.long, device=flat.device)
+    last.scatter_reduce_(0, flat, torch.arange(flat.numel(), device=flat.device),
+                         reduce="amax")
+    src = last[flat]
+    for name, vals in values.items():
+        pool = getattr(cache, name)
+        if pool is not None:
+            rows = vals.reshape(-1, *vals.shape[pages.dim():])[src]
+            pool[pages, off] = rows.reshape(vals.shape).to(pool.dtype)
+
+
 def _paged_encode(cache: PagedKVCache, k_new: Tensor, v_new: Tensor) -> dict:
     """What an append stores, per pool leaf: the same cast or int8 row
     quantization as the dense cache."""
@@ -385,8 +410,7 @@ def paged_append(cache: PagedKVCache, k_new: Tensor, v_new: Tensor) -> PagedKVCa
     wrap point, as in the dense contract."""
     vi = _paged_slots(cache, k_new.shape[1])
     pages, off = _paged_addr(cache, vi)
-    for name, vals in _paged_encode(cache, k_new, v_new).items():
-        getattr(cache, name)[pages, off] = vals
+    write_pool_slots(cache, pages, off, _paged_encode(cache, k_new, v_new))
     return _paged_advance(cache, vi)
 
 
@@ -433,10 +457,7 @@ def paged_scatter_rows(cache: PagedKVCache, k: Tensor, v: Tensor,
     b = cache.page_tbl.shape[0]
     vi = torch.arange(cap, dtype=torch.int32, device=pos.device).expand(b, cap)
     pages, off = _paged_addr(cache, vi)
-    for name, vals in zip(POOL_FIELDS, (k, v, k_scale, v_scale)):
-        pool = getattr(cache, name)
-        if pool is not None:
-            pool[pages, off] = vals.to(pool.dtype)
+    write_pool_slots(cache, pages, off, dict(zip(POOL_FIELDS, (k, v, k_scale, v_scale))))
     return dataclasses.replace(cache, pos=pos, length=length)
 
 
@@ -458,6 +479,7 @@ def paged_restore_slots(cache: PagedKVCache, saved: tuple,
     (B, n) entries where ``where`` holds (the others are rewritten with
     their current content)."""
     pages, off, vals = saved
+    values = {}
     for name, old in zip(POOL_FIELDS, vals):
         pool = getattr(cache, name)
         if pool is None:
@@ -465,7 +487,8 @@ def paged_restore_slots(cache: PagedKVCache, saved: tuple,
         if where is not None:
             m = where.reshape(where.shape + (1,) * (old.dim() - where.dim()))
             old = torch.where(m, old, pool[pages, off])
-        pool[pages, off] = old
+        values[name] = old
+    write_pool_slots(cache, pages, off, values)
 
 
 def kv_append(cache: KVCache | PagedKVCache, k_new: Tensor, v_new: Tensor):
@@ -602,22 +625,33 @@ def attention_apply(
     window: int = 0,
     causal: bool = True,
     write_pools: bool = True,
+    kv_override: tuple[Tensor, Tensor] | None = None,
 ) -> tuple[Tensor, KVCache | PagedKVCache | None]:
     """``write_pools=False``: a paged decode step reads its fresh K/V from
     the gathered view and leaves the pools untouched (dense caches are
-    never written in place)."""
+    never written in place).
+
+    ``kv_override=(enc_out, enc_out)``: cross-attention, as the reference's.
+    K and V are projected from the encoder output on every call; there is
+    no RoPE, no cache read or write and no causal mask."""
     policy = cfg.policy
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = plinear(x, p["wq"], "qkv", policy).reshape(b, s, hq, hd)
-    k = plinear(x, p["wk"], "qkv", policy).reshape(b, s, hkv, hd)
-    v = plinear(x, p["wv"], "qkv", policy).reshape(b, s, hkv, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = plinear(x, p["wk"], "qkv", policy).reshape(b, s, hkv, hd)
+        v = plinear(x, p["wv"], "qkv", policy).reshape(b, s, hkv, hd)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        enc = kv_override[0]
+        k = plinear(enc, p["wk"], "qkv", policy).reshape(b, enc.shape[1], hkv, hd)
+        v = plinear(enc, p["wv"], "qkv", policy).reshape(b, enc.shape[1], hkv, hd)
+        causal = False
 
-    if cache is not None:
+    if cache is not None and kv_override is None:
         q_offset = cache.length
         if isinstance(cache, PagedKVCache) and not write_pools:
             cache, view = paged_append_readonly(cache, k, v)
@@ -666,6 +700,21 @@ def swiglu_apply(p: Params, x: Tensor, policy: PrecisionPolicy) -> Tensor:
     g = pmm(x, p["gate"]["w"], "mlp_up", policy)
     u = pmm(x, p["up"]["w"], "mlp_up", policy)
     return pmm(F.silu(g) * u, p["down"]["w"], "mlp_down", policy)
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                  layers: int | None = None) -> Params:
+    """The enc-dec family's MLP: up and down projections with biases."""
+    return {
+        "up": dense_init(gen, d_model, d_ff, bias=True, layers=layers),
+        "down": dense_init(gen, d_ff, d_model, bias=True, layers=layers),
+    }
+
+
+def gelu_mlp_apply(p: Params, x: Tensor, policy: PrecisionPolicy) -> Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(plinear(x, p["up"], "mlp_up", policy), approximate="tanh")
+    return plinear(h, p["down"], "mlp_down", policy)
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,7 @@ from repro_torch.models.layers import (
     paged_cache_init,
     paged_restore_slots,
     paged_save_slots,
+    write_pool_slots,
 )
 from repro_torch.models.lm import DecodeState, map_state, state_leaves
 from repro_torch.obs import NULL_TRACER
@@ -176,10 +177,9 @@ def paged_scatter_row(c: PagedKVCache, row: KVCache, slot: int,
     vi = torch.arange(cap, device=write_tbl.device)
     pages = torch.clamp(write_tbl[vi // ps], min=0).long()
     off = vi % ps
-    for name, vals in zip(POOL_FIELDS, (row.k, row.v, row.k_scale, row.v_scale)):
-        pool = getattr(c, name)
-        if pool is not None:
-            pool[pages, off] = vals[0].to(pool.dtype)
+    write_pool_slots(c, pages, off, {
+        name: vals[0] for name, vals in zip(POOL_FIELDS, (row.k, row.v, row.k_scale, row.v_scale))
+        if vals is not None})
     c.pos[slot:slot + 1] = row.pos
     c.length[slot:slot + 1] = row.length
 

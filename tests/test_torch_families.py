@@ -140,12 +140,18 @@ def test_params_convert_and_port_init_makes_the_reference_layout(arch):
 
 
 def test_convert_refuses_the_unported_trees():
+    """Only trees no family makes are refused: a hybrid slot of a kind the
+    pattern never holds, a tree with neither layers nor supergroups, a
+    decoder segment without its encoder stack.  The enc-dec tree converts."""
     with pytest.raises(NotImplementedError, match="hybrid block"):
         params_from_jax({"super": {"l0_moe": {}}}, device="cpu")
     with pytest.raises(NotImplementedError, match="neither"):
         params_from_jax({"embed": {}}, device="cpu")
     with pytest.raises(NotImplementedError, match="enc-dec"):
-        params_from_jax({"layers": {"seg0_dec": {}}, "enc_layers": {}}, device="cpu")
+        params_from_jax({"layers": {"seg0_dec": {}}}, device="cpu")
+    tree = params_from_jax({"layers": {"seg0_dec": {"w": np.ones(2)}},
+                            "enc_layers": {"w": np.ones(2)}}, device="cpu")
+    assert tree["enc_layers"]["w"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("policy_name", list(POLICY_CASES))

@@ -64,6 +64,10 @@ def test_the_package_has_the_modules_of_the_slice():
                  "adapt.runtime_policy", "obs.tracer", "serve.engine", "serve.scheduler",
                  "serve.tenancy", "serve.metrics", "serve.config", "serve.paged",
                  "launch.serve", "convert", "configs.qwen1_5_0_5b",
+                 "models.moe", "models.ssm", "models.griffin", "configs.qwen1_5_4b",
+                 "configs.phi3_mini_3_8b", "configs.command_r_plus_104b",
+                 "configs.phi3_5_moe_42b", "configs.kimi_k2_1t", "configs.whisper_medium",
+                 "configs.internvl2_1b", "configs.mamba2_2_7b", "configs.recurrentgemma_9b",
                  "tune", "tune.table", "tune.runner", "tune.__main__",
                  "spec", "spec.config", "spec.rollout"):
         assert f"repro_torch.{want}" in MODULES, want

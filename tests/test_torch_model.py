@@ -53,7 +53,11 @@ from test_torch_common import (
 def test_configs_equal_field_by_field():
     from repro.configs import get_config as j_get_config
 
-    for arch in (ARCH, "mamba2-2.7b", "recurrentgemma-9b"):
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in ARCH_IDS:  # every id, full and smoke size (reduce_for_smoke)
         for make_t, make_j in ((get_smoke_config, j_get_smoke_config),
                                (get_config, j_get_config)):
             t, j = make_t(arch), make_j(arch)
@@ -71,9 +75,11 @@ def test_configs_equal_field_by_field():
     assert (hyb.family, hyb.n_layers, hyb.d_model, hyb.d_ff, hyb.vocab, hyb.local_window,
             hyb.tie_embeddings) == ("hybrid", 38, 4096, 12288, 256000, 2048, False)
     assert sorted(PRESETS) == sorted(J_POLICIES)
-    # the families still to port keep raising
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("phi3.5-moe-42b-a6.6b")
+    # every family is ported; an unknown id is what raises
+    moe = get_config("phi3.5-moe-42b-a6.6b")
+    assert (moe.family, moe.moe_experts, moe.moe_top_k, moe.d_ff) == ("moe", 16, 2, 6400)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("phi3.5-moe-42b")
 
 
 def test_params_from_jax_keeps_layout_and_port_init_matches_it():
@@ -87,12 +93,19 @@ def test_params_from_jax_keeps_layout_and_port_init_matches_it():
         assert v.dtype == torch.float32 and v.device.type == "cpu"
     w = tparams["layers"]["seg0_dense"]["mlp"]["up"]["w"]
     assert tuple(w.shape) == (4, 128, 256)  # (layers, d_in, d_out): used as x @ w
-    # moe (a dense segment then a moe one) and enc-dec trees are refused;
-    # the ssm and hybrid trees convert (test_torch_families)
-    with pytest.raises(NotImplementedError, match="dense, ssm and hybrid"):
-        params_from_jax({"layers": {"seg0_dense": {}, "seg1_moe": {}}}, device="cpu")
+    # moe (a dense segment then a moe one) and enc-dec trees convert (the
+    # ssm and hybrid ones: test_torch_families; every family:
+    # test_torch_archs); a segment of an unknown block kind, or an encoder
+    # stack without a decoder, is refused
+    kimi = params_from_jax({"layers": {"seg0_dense": {"w": np.ones(2)},
+                                       "seg1_moe": {"w": np.ones(3)}}}, device="cpu")
+    assert sorted(kimi["layers"]) == ["seg0_dense", "seg1_moe"]
+    assert params_from_jax({"layers": {"seg0_dec": {}}, "enc_layers": {}},
+                           device="cpu")["enc_layers"] == {}
+    with pytest.raises(NotImplementedError, match="unknown layer segments"):
+        params_from_jax({"layers": {"seg0_dense": {}, "seg1_conv": {}}}, device="cpu")
     with pytest.raises(NotImplementedError, match="enc-dec"):
-        params_from_jax({"layers": {"seg0_dec": {}}, "enc_layers": {}}, device="cpu")
+        params_from_jax({"layers": {"seg0_dense": {}}, "enc_layers": {}}, device="cpu")
     with pytest.raises(RuntimeError, match="found no GPU"):
         if torch.cuda.is_available():
             raise RuntimeError("found no GPU (skipped: a GPU is present)")

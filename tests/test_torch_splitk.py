@@ -26,6 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.limb_matmul import ops as limb_ops
 from repro_torch.kernels.limb_matmul.ops import (
     BLOCKS_PER_SM,
+    MAX_SPLIT_LEN,
     gemm_blocks,
     k_step,
     k_steps,
@@ -130,6 +131,28 @@ def test_split_k_fills_the_card_and_stops_when_the_grid_does(p):
     else:
         assert s == min(BLOCKS_PER_SM * sms // blocks, k_steps(kd, bk, tk))
     assert blocks * s <= max(BLOCKS_PER_SM * sms, blocks)
+
+
+@pytest.mark.parametrize("m,kd,n", [(4, 33792, 12288), (48, 33792, 12288), (4, 16385, 9000),
+                                    (4, 16384, 9000), (4, 12288, 4096)])
+def test_no_split_sums_more_than_max_split_len(m, kd, n):
+    """A full grid is split all the same once K passes ``MAX_SPLIT_LEN``
+    (command-r+'s down projection, K = 33792, in three splits), and every
+    split's stretch of K stays within it; K <= MAX_SPLIT_LEN keeps the
+    grid-only split."""
+    _, (bm, bn, bk) = tile_grid(m, n, kd)
+    tk = k_step(3)
+    s = _plan(m, kd, n)
+    walk = k_walk(kd, bk, tk)
+    for t0, t1 in split_ranges(len(walk), s):
+        assert walk[t1 - 1][2] - walk[t0][1] <= MAX_SPLIT_LEN
+    fill = BLOCKS_PER_SM * H100_SMS // gemm_blocks(m, n, bm, bn)
+    if kd <= MAX_SPLIT_LEN:
+        assert s == max(1, min(fill, len(walk)))
+    else:
+        assert s == max(fill, -(-kd // MAX_SPLIT_LEN)) > 1
+    if (m, kd, n) == (4, 33792, 12288):
+        assert s == 3
 
 
 @pytest.mark.parametrize("m,kd,n", SERVING + [(1, 96, 48), (17, 33, 9), (100, 3000, 70)])
