@@ -8,8 +8,12 @@ Run from the root of a checkout, with no arguments:
 It builds the four CUDA kernels from ``src/repro_torch/csrc`` (once), holds
 each against its plain PyTorch version on the card at the shapes its path
 gives it (the limb, mode-map and double-f32 kernels at the K split
-``split_k`` plans, which it prints per shape, and unsplit), times them
-beside their bound, then
+``split_k`` plans, which it prints per shape, and unsplit; the limb and
+mode-map kernels through their weight-streaming body at M <= 16 — also on
+misaligned operands and captured in a CUDA graph — and their tiled body
+above), times them beside their bound (each row names its ``path`` and
+``share_of_bound``; ptxas's registers, spills and shared memory of every
+weight-streaming instantiation go into the ``kernels`` line), then
 serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
@@ -54,6 +58,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -73,12 +78,14 @@ from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
+    gemm_body,
     k_step,
     k_walk,
     limb_matmul,
     limb_matmul_dd,
     limb_matmul_dd_plain,
     limb_matmul_plain,
+    SKINNY_M_MAX,
     reduce_splits_dd,
     resolve_splits,
     split_pieces,
@@ -361,12 +368,14 @@ def _mixed_map(grid, gen_cpu, kmax=3):
     return torch.randint(1, kmax + 1, grid, generator=gen_cpu, dtype=torch.int32).cuda()
 
 
-def planned_splits(m: int, k: int, n: int, limbs: int = 3, **blk) -> int:
-    """The K split count the limb and mode-map wrappers run at on this card
-    for (m, k, n) at the blocks ``blk`` (default: the wrappers')."""
+def planned_splits(m: int, k: int, n: int, limbs: int = 3, dd: bool = False, **blk) -> int:
+    """The K split count the limb and mode-map wrappers (``dd``: the
+    double-f32 wrapper, always the tiled body) run at on this card for
+    (m, k, n) at the blocks ``blk`` (default: the wrappers')."""
     _, (bm, bn, bk) = tile_grid(m, n, k, **blk)
     return resolve_splits(None, torch.device("cuda", torch.cuda.current_device()), m, n, k,
-                          bm=bm, bn=bn, bk=bk, tk=k_step(limbs))
+                          bm=bm, bn=bn, bk=bk, tk=k_step(limbs),
+                          body="wide" if dd else gemm_body(m, limbs))
 
 
 def check_kernels(gen) -> dict:
@@ -378,6 +387,7 @@ def check_kernels(gen) -> dict:
     worst_abs = dict(worst)
     n_cases = 0
     shapes = [(m, k, n) for m in MAIN_M for (k, n) in MAIN_KN + HYBRID_KN] + [(17, 33, 9)]
+    tiny = dict(bm=16, bn=16, bk=16)
     splits = {}
     unsplit_vs_split = 0.0
 
@@ -402,16 +412,22 @@ def check_kernels(gen) -> dict:
                 same = torch.equal(got.view(torch.int32), want.view(torch.int32))
                 check(same, f"quantize_mantissa {shape} {rounding} keep={keep} not bit-exact")
                 n_cases += 1
-    # the serving shapes at the default blocks, then two ragged split layouts:
+    # the serving shapes at the default blocks, then ragged split layouts:
     # bk = 720 (not a multiple of TK = 64) puts a split boundary inside the
-    # ragged last slab of K = 2816; bk = 16 < TK makes every step a slab
-    cases = [(m, k, n, {}) for m, k, n in shapes] + [
-        (4, 2816, 1024, dict(bk=720)), (17, 33, 9, dict(bm=16, bn=16, bk=16))]
-    for m, k, n, blk in cases:
-        a, b = _rand(gen, m, k), _rand(gen, k, n)
+    # ragged last slab of K = 2816; bk = 16 < TK makes every step a slab (at
+    # M = 17 in the tiled body, at M = 3 and 16 in the skinny body, whose
+    # 16-column map tiles cut its 64-column block); then operands whose
+    # storage starts 4 bytes past a 16-byte boundary (the 4-byte copies)
+    cases = [(m, k, n, {}, False) for m, k, n in shapes] + [
+        (4, 2816, 1024, dict(bk=720), False), (17, 33, 9, tiny, False),
+        (3, 33, 9, tiny, False), (16, 33, 9, tiny, False), (4, 1024, 2816, {}, True)]
+    for m, k, n, blk, misaligned in cases:
+        rand = _rand_misaligned if misaligned else _rand
+        a, b = rand(gen, m, k), rand(gen, k, n)
         grid, (bm, bn, bk) = tile_grid(m, n, k, **blk)
         s = planned_splits(m, k, n, **blk)
-        splits[f"{m}x{k}x{n}" + (f" {blk}" if blk else "")] = s
+        splits[f"{m}x{k}x{n}" + (f" {blk}" if blk else "")
+               + (" misaligned" if misaligned else "")] = s
         if m == MAIN_M[0] and not blk and (k, n) in MAIN_KN:
             check(s > 1, f"no K split at the decode shape {(m, k, n)}")
         if blk.get("bk") == 720:
@@ -460,10 +476,10 @@ def check_kernels(gen) -> dict:
               f"uniform map != limb kernel at {(m, k, n)} S=1")
         n_cases += 3
     # the other families' shapes (serve_moe, serve_configs, multimodal) at
-    # the M their phases give, with fewer cases a shape: k = 2 and 3 against
-    # the plain version, uniform map == limb kernel and runtime (host int,
-    # device scalar) == static bitwise, one mixed 2-D map against its plain
-    # version
+    # the M their phases give, with fewer cases a shape: k = 2 and 3 (and 1
+    # at M <= 16, the skinny body, with a second call bitwise) against the
+    # plain version, uniform map == limb kernel and runtime (host int, device
+    # scalar) == static bitwise, one mixed 2-D map against its plain version
     family_shapes = sorted({(m, k, n) for fam, (m_rows, kn) in FAMILY_SHAPES.items()
                             if fam != HYBRID_ARCH for m in m_rows for (k, n) in kn})
     for m, k, n in family_shapes:
@@ -471,8 +487,14 @@ def check_kernels(gen) -> dict:
         grid, (bm, bn, bk) = tile_grid(m, n, k)
         s = planned_splits(m, k, n)
         splits[f"{m}x{k}x{n}"] = s
-        for limbs in (2, 3):
+        for limbs in (1, 2, 3) if m <= SKINNY_M_MAX else (2, 3):
             got = limb_matmul(a, b, limbs)
+            if m <= SKINNY_M_MAX:
+                again = limb_matmul(a, b, limbs)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"two limb_matmul calls differ at {(m, k, n)} k={limbs}")
+                n_cases += 1
             hold("limb_matmul", got, limb_matmul_plain(a, b, limbs, bk=bk, splits=s),
                  f"{(m, k, n)} k={limbs} S={s}")
             uni = tile_matmul_mode(a, b, Mode(limbs))
@@ -490,6 +512,7 @@ def check_kernels(gen) -> dict:
              f"{(m, k, n)} map{tuple(grid[:2])} S={s}")
         n_cases += 1
         del a, b
+    n_cases += captured_equals_eager(gen, gen_cpu)
     # a finer map grid than the default, so one launch holds many map tiles
     a, b = _rand(gen, 48, 1024), _rand(gen, 1024, 1024)
     grid, (bm, bn, bk) = tile_grid(48, 1024, 1024, bm=16, bn=64, bk=128)
@@ -514,9 +537,45 @@ def check_kernels(gen) -> dict:
             "unsplit_vs_split_rel_err": unsplit_vs_split}
 
 
+def captured_equals_eager(gen, gen_cpu) -> int:
+    """At M <= 16 (one and two activation fragments, a 16-column map tile):
+    the limb kernel, the map kernel under a device-scalar mode and under a
+    mixed map, captured together in one CUDA graph after an eager warm-up as
+    the engine captures its steps; the replay's results must equal the
+    eager launches' bit for bit.  Returns the number of comparisons."""
+    n_cmp = 0
+    for m, k, n, blk in ((4, 1024, 2816, {}), (12, 1024, 1024, {}), (1, 896, 128, {}),
+                         (16, 33, 9, dict(bm=16, bn=16, bk=16))):
+        a, b = _rand(gen, m, k), _rand(gen, k, n)
+        grid, _ = tile_grid(m, n, k, **blk)
+        mode_map = _mixed_map(grid, gen_cpu)
+        mode = torch.tensor(3, dtype=torch.int32, device="cuda")
+        calls = (lambda: limb_matmul(a, b, 2, **blk),
+                 lambda: tile_matmul_runtime(a, b, mode, **blk),
+                 lambda: tile_matmul(a, b, mode_map, **blk))
+        eager_out = [f() for f in calls]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for f in calls:
+                f()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = [f() for f in calls]
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want, what in zip(captured, eager_out, ("limb", "runtime map", "mixed map")):
+            check(torch.equal(got, want), f"captured {what} != eager at {(m, k, n)} {blk}")
+            n_cmp += 1
+        del graph
+    return n_cmp
+
+
 def _rand_misaligned(gen, *shape):
     """A contiguous operand whose storage starts 4 bytes past a 16-byte
-    boundary: the double-f32 kernel must take its 4-byte load path."""
+    boundary: the double-f32 kernel and the skinny body must take their
+    4-byte load and copy paths."""
     n = math.prod(shape)
     x = torch.empty(n + 1, device="cuda", dtype=torch.float32)[1:].view(*shape)
     x.copy_(_rand(gen, *shape))
@@ -596,7 +655,7 @@ def check_dd(gen) -> dict:
         rand = _rand_misaligned if misaligned else _rand
         a, b = rand(gen, m, k), rand(gen, k, n)
         _, (_, _, bk) = tile_grid(m, n, k, **blk)
-        planned = planned_splits(m, k, n, limbs, **blk)
+        planned = planned_splits(m, k, n, limbs, dd=True, **blk)
         walk = len(k_walk(k, bk, k_step(limbs)))
         if (m, k, n, limbs) == (4, 2816, 1024, 4) and not blk:
             check(planned > 1, f"no K split for the double-f32 kernel at {(m, k, n)}")
@@ -669,7 +728,7 @@ def time_dd(gen) -> list[dict]:
         a64, bs64 = a.double(), [x.double() for x in bs]
         _, (_, _, bk) = tile_grid(m, n, k)
         step = k_step(limbs)
-        s = planned_splits(m, k, n, limbs)
+        s = planned_splits(m, k, n, limbs, dd=True)
         bound, by = gemm_bound_ms(m, k, n, len(limb_product_terms(limbs)), outputs=2)
         ms1, enqueue1 = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs, splits=1), n_rot)
         ms, enqueue = time_ms(lambda i: limb_matmul_dd(a, bs[i], limbs), n_rot)
@@ -795,6 +854,45 @@ def time_family_kernels(gen) -> list[dict]:
     return rows
 
 
+def header_constants() -> dict[str, int]:
+    """The ``constexpr int`` constants of ``csrc/rmpm_gemm.cuh``, evaluated
+    in order (each an integer expression of earlier ones)."""
+    with open(os.path.join(build.csrc_dir(), "rmpm_gemm.cuh")) as fh:
+        text = fh.read()
+    consts: dict[str, int] = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text, re.M):
+        consts[name] = eval(expr, {}, dict(consts))
+    return consts
+
+
+def skinny_ptxas(log: str) -> list[dict]:
+    """ptxas's registers, spills and static shared memory for each
+    weight-streaming instantiation (limb and map kernel, KMAX 1-3, NF 1-2),
+    beside the dynamic shared memory each launch asks for
+    (``rmpm::SK_SMEM_BYTES``)."""
+    ring = header_constants()["SK_SMEM_BYTES"]
+    out, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kind = re.search(r"(limb|tile)_matmul_skinny_kernelILi(\d)ELi(\d)E", entry.group(1))
+            cur = None
+            if kind:
+                cur = dict(kernel=f"{kind.group(1)}_matmul", kmax=int(kind.group(2)),
+                           nf=int(kind.group(3)), dynamic_smem_bytes=ring)
+                out.append(cur)
+        elif cur is not None:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill:
+                cur.update(spill_stores=int(spill.group(1)), spill_loads=int(spill.group(2)))
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                smem = re.search(r"(\d+) bytes smem", line)
+                cur.update(registers=int(used.group(1)),
+                           static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def phase_kernels(gen) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     build.library(verbose=True)
@@ -807,6 +905,14 @@ def phase_kernels(gen) -> tuple[dict, dict]:
     checks["entry_point_launches"] = {"limb_matmul_dd": drive_dd_entry_point(gen)}
     timing = time_kernels(gen)
     timing["rows"] += time_dd(gen)
+    for row in timing["rows"]:
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["path"] = ("wide" if row["kernel"] == "limb_matmul_dd"
+                       else gemm_body(row["m"], row["limbs"])
+                       if row["kernel"] in ("limb_matmul", "tile_matmul") else None)
+    checks["ptxas_skinny"] = skinny_ptxas(build.BUILD_LOG)
+    check(len(checks["ptxas_skinny"]) == 12,
+          f"{len(checks['ptxas_skinny'])} skinny instantiations in ptxas's log, not 12")
     check(build.BUILD_COUNT == 1, "kernels were built more than once")
     # ptxas -v per kernel: entry name, then registers / shared memory / spills
     ptxas = [ln.split(":", 1)[-1].strip() for ln in build.BUILD_LOG.splitlines()
@@ -2698,9 +2804,13 @@ def kernels_line(checks, timing, main_counts) -> dict:
         family = [r for r in rows if r.get("family")]
         if family:
             entry["family_shapes"] = [
-                {key: r[key] for key in ("family", "m", "k", "n", "limbs", "splits", "ms",
-                                         "bound_ms", "bound_by", "plain_ms", "library_ms")}
+                {key: r[key] for key in ("family", "m", "k", "n", "limbs", "splits", "path",
+                                         "ms", "bound_ms", "bound_by", "share_of_bound",
+                                         "plain_ms", "library_ms")}
                 for r in family]
+        skinny = [p for p in checks["ptxas_skinny"] if p["kernel"] == name]
+        if skinny:
+            entry["ptxas_skinny"] = skinny
         runtime = [r for r in at if r.get("via") == "tile_matmul_runtime"]
         if runtime:
             entry.update(runtime_ms=runtime[0]["ms"], runtime_enqueue_ms=runtime[0]["enqueue_ms"])
@@ -2712,9 +2822,9 @@ def kernels_line(checks, timing, main_counts) -> dict:
                                     "operands); max_rel_err is that over the result's scale, "
                                     "held to 2e-6"),
             shape={"m": m, "k": k, "n": n, "limbs": limbs},
-            ms=main["ms"], enqueue_ms=main["enqueue_ms"], plain_ms=main["plain_ms"],
-            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], **entry))
+            body=main["path"], ms=main["ms"], enqueue_ms=main["enqueue_ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            share_of_bound=main["share_of_bound"], library_ms=main["library_ms"], **entry))
     return {"kernels": out}
 
 

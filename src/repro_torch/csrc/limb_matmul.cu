@@ -4,12 +4,21 @@
 //
 // a (M,K) f32 @ b (K,N) f32 -> (M,N) f32 at k in 1..6 bf16 limbs: operand
 // tiles are read once, split into limbs on chip, and all k(k+1)/2 retained
-// Karatsuba products are accumulated in f32.  The datapath, its bound and
-// its design notes are in rmpm_gemm.cuh, which this kernel shares with the
-// mode-map kernel so that the two agree bit for bit on uniform maps.  The K
-// walk is split S ways across thread blocks (deterministic split-K: partial
-// tiles in a workspace, then a fixed-order reduction on the same stream);
-// S comes from the wrapper.
+// Karatsuba products are accumulated in f32.  Two bodies of rmpm_gemm.cuh
+// serve it, chosen by M (`rmpm::use_skinny`):
+//  * M <= 16 at k <= 3 (every decode step): `rmpm_skinny_body`, a
+//    weight-streaming body — swap-AB mma.sync, a cp.async ring of raw f32
+//    tiles, limbs peeled in registers.  The bound there is the weight's
+//    bytes; the ring keeps ~100 KB of them in flight on each SM.
+//  * every other launch (M > 16, or 4-6 limbs): `rmpm_gemm_body`, the tiled
+//    wmma body with a one-step register prefetch.
+// The mode-map kernel routes the same way, so the two agree bit for bit on
+// uniform maps; the datapath, its bound and the design notes are in
+// rmpm_gemm.cuh.  The K walk is split S ways across thread blocks
+// (deterministic split-K: partial tiles in a workspace, then a fixed-order
+// reduction on the same stream); S comes from the wrapper.
+#include <initializer_list>
+
 #include "rmpm_gemm.cuh"
 
 namespace {
@@ -22,14 +31,35 @@ limb_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
   rmpm::rmpm_gemm_body<KMAX>(A, B, C, nullptr, 0, M, N, K, bm, bn, bk);
 }
 
+template <int KMAX, int NF>
+__global__ void __launch_bounds__(rmpm::SK_THREADS, rmpm::SK_BLOCKS_PER_SM)
+limb_matmul_skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ C, int M, int N, int K, int bm, int bn,
+                          int bk) {
+  rmpm::rmpm_skinny_body<KMAX, NF>(A, B, C, nullptr, 0, M, N, K, bm, bn, bk);
+}
+
 template <int KMAX>
 int launch(const float* a, const float* b, float* c, float* ws, int m, int n,
            int k, int bm, int bn, int bk, int splits, cudaStream_t stream) {
   if (!rmpm::splits_ok(splits, ws, k, bk, rmpm::Tiling<KMAX>::TK))
     return (int)cudaErrorInvalidValue;
+  float* const dst = splits > 1 ? ws : c;
+  if constexpr (KMAX <= 3) {
+    if (rmpm::use_skinny(m, KMAX)) {
+      const dim3 grid = rmpm::skinny_grid(m, n, bm, bn, splits);
+      if (m <= 8)
+        limb_matmul_skinny_kernel<KMAX, 1><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
+                                             stream>>>(a, b, dst, m, n, k, bm, bn, bk);
+      else
+        limb_matmul_skinny_kernel<KMAX, 2><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
+                                             stream>>>(a, b, dst, m, n, k, bm, bn, bk);
+      return rmpm::finish_splits(c, ws, m, n, splits, stream);
+    }
+  }
   limb_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
                              rmpm::THREADS, 0, stream>>>(
-      a, b, splits > 1 ? ws : c, m, n, k, bm, bn, bk);
+      a, b, dst, m, n, k, bm, bn, bk);
   return rmpm::finish_splits(c, ws, m, n, splits, stream);
 }
 
@@ -59,4 +89,19 @@ extern "C" int rmpm_limb_matmul(const void* a, const void* b, void* c,
     case 6: return launch<6>(A, B, C, W, m, n, k, bm, bn, bk, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Allow the skinny kernels their ring on the current device; the wrapper
+// calls it once per device, before the device's first launch.
+// Returns the first error of cudaFuncSetAttribute, or 0.
+extern "C" int rmpm_limb_matmul_prepare() {
+  cudaError_t err = cudaSuccess;
+  for (cudaError_t e : {rmpm::allow_skinny(limb_matmul_skinny_kernel<1, 1>),
+                        rmpm::allow_skinny(limb_matmul_skinny_kernel<1, 2>),
+                        rmpm::allow_skinny(limb_matmul_skinny_kernel<2, 1>),
+                        rmpm::allow_skinny(limb_matmul_skinny_kernel<2, 2>),
+                        rmpm::allow_skinny(limb_matmul_skinny_kernel<3, 1>),
+                        rmpm::allow_skinny(limb_matmul_skinny_kernel<3, 2>)})
+    if (err == cudaSuccess) err = e;
+  return (int)err;
 }

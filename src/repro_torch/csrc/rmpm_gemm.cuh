@@ -1,60 +1,66 @@
 // rmpm_gemm.cuh — the limb datapath shared by the limb kernel, the
 // mode-map kernel and the double-f32 limb kernel.
 //
-// One device function, `rmpm_gemm_body<KMAX>`, computes one thread-block
-// tile of  C (M,N) f32 = A (M,K) f32 @ B (K,N) f32  at limb precision:
-// every operand tile is read ONCE from device memory as f32, peeled into
-// KMAX bf16 limbs on the way into shared memory (round-to-nearest cast and
-// an f32 subtraction; limbs never touch device memory), and the retained
-// Karatsuba products  a_limb[ti] x b_limb[tj],  ti + tj < k_tile,  run as
-// bf16 x bf16 -> f32 tensor-core MMAs (nvcuda::wmma 16x16x16), high-order
-// (small-magnitude) terms first — the term order of `limb_product_terms`.
+// Both kernels compute  C (M,N) f32 = A (M,K) f32 @ B (K,N) f32  at limb
+// precision: every operand element is read ONCE from device memory as f32,
+// peeled on chip into bf16 limbs (a round-to-nearest cast and an exact f32
+// subtraction; limbs never touch device memory), and the retained Karatsuba
+// products  a_limb[ti] x b_limb[tj],  ti + tj < k_tile,  run as bf16 x bf16
+// -> f32 tensor-core MMAs, high-order (small-magnitude) terms first — the
+// term order of `limb_product_terms`.  Two device bodies do it:
 //
-// `limb_matmul_kernel` calls it with no map (k_tile == KMAX everywhere);
-// `tile_matmul_kernel` calls it with the int32 mode map;
-// `limb_matmul_dd_kernel` calls its compile-time double-f32 variant (DD).
-// Because the first two run the same body, the same K walk and the same
-// term order, a uniform map at mode m gives the same bits as the limb kernel
-// at k = m — the contract the TPU kernels hold by construction, held here
-// the same way.
+//  * `rmpm_skinny_body<KMAX, NF>` — the weight-streaming body, for the limb
+//    and mode-map kernels at M <= SKINNY_M_MAX (16) and KMAX <= 3: every
+//    decode step of the serving path.
+//  * `rmpm_gemm_body<KMAX, DD>` — the tiled body, for every other launch:
+//    M > 16, the limb kernel at 4-6 limbs, and the double-f32 kernel (DD) at
+//    every M.
 //
-// What replaces what (TPU -> Hopper):
+// Which body runs depends on M only (and, for the limb kernel, on whether k
+// is above the f32 ladder's three limbs), never on the mode: a uniform map
+// at mode m and the limb kernel at k = m run the same body, the same K walk
+// and the same term order, so they give the same bits — the contract the
+// TPU kernels hold by construction — and so does a run-time mode against a
+// static one.
+//
+// What replaces what (TPU -> Hopper), in both bodies:
 //  * the sequential K grid with an accumulator carried in scratch memory
 //    becomes a loop over K inside the thread block, cut into S splits that
 //    run as separate thread blocks (Split-K below);
 //  * `(bm, bn, bk)` no longer sizes the tile that is resident on chip: it is
-//    only the granularity of the mode map.  A thread block owns a
-//    TM x TN = 32 x 32 piece of ONE map tile (so it has one map entry per K
-//    slab), walks K in slabs of bk and, inside a slab, in steps of TK;
+//    only the granularity of the mode map.  A thread block owns a piece of
+//    ONE map tile (so it has one map entry per K slab), walks K in slabs of
+//    bk and, inside a slab, in steps of TK;
 //  * the scalar-prefetched map becomes a plain load: each block finds its
 //    entry from its own coordinates;
 //  * ragged edges are masked here (zero fill on load, guarded store), so
 //    the wrapper pads nothing.
 //
 // Split-K.  At the decode shapes (M = a few rows) the (M, N) grid alone is a
-// few dozen thread blocks on a 132-SM card, each walking all of K with one
-// step's loads in flight.  So the grid has a third dimension of S splits.
-// The K walk of a block is one ordered list of steps — for slab kk, the
-// steps k0 = kk*bk, kk*bk + TK, ... below min((kk+1)*bk, K) — and split s
-// takes its contiguous range [s*T/S, (s+1)*T/S) of the T steps.  Each step
-// keeps its slab, so the map entry of slab kk governs exactly its own steps,
-// for a ragged last slab and for bk < TK alike.  Split s writes its f32
-// partial tile to a workspace [S, M, N]; `splitk_reduce` then adds the
-// partials in the fixed order s = 0, 1, ..., S-1 with __fadd_rn and writes C
-// (the DD kernel writes (hi, lo) pairs and `splitk_reduce_dd` folds them in
-// the same order with TwoSum).
-// No float atomics and no last-block fixup: the order of every sum is fixed
-// by the layout, never by timing, so run-to-run bits, uniform map == limb
-// kernel and runtime == static hold at every S.  With S == 1 the body writes
-// C directly and nothing else is launched: the bits of the unsplit walk.
-// The wrapper picks S (`split_k` in kernels/limb_matmul/ops.py) from the
-// problem, the blocks, TK and the SM count — never from the limb count.
+// few dozen thread blocks on a 132-SM card.  So the grid has a third
+// dimension of S splits.  The K walk of a block is one ordered list of steps
+// — for slab kk, the steps k0 = kk*bk, kk*bk + TK, ... below
+// min((kk+1)*bk, K) — and split s takes its contiguous range
+// [s*T/S, (s+1)*T/S) of the T steps.  Each step keeps its slab, so the map
+// entry of slab kk governs exactly its own steps, for a ragged last slab and
+// for bk < TK alike.  Split s writes its f32 partial tile to a workspace
+// [S, M, N]; `splitk_reduce` then adds the partials in the fixed order
+// s = 0, 1, ..., S-1 with __fadd_rn and writes C (the DD kernel writes
+// (hi, lo) pairs and `splitk_reduce_dd` folds them in the same order with
+// TwoSum).  No float atomics and no last-block fixup: the order of every sum
+// is fixed by the layout, never by timing, so run-to-run bits, uniform map
+// == limb kernel and runtime == static hold at every S.  With S == 1 the
+// body writes C directly and nothing else is launched.  The wrapper picks S
+// (`split_k` in kernels/limb_matmul/ops.py) from the problem, the body's
+// thread-block tile and residency, and the SM count — never from the limb
+// count or the mode.
 //
 // Accumulation.  The tensor core adds into its accumulator with truncation,
-// which would bias a long chain.  So each term's products over one K step
-// (TK/16 MMAs) go into a fresh fragment, and that partial sum is then added
-// into the running f32 accumulator by the CUDA cores with round-to-nearest:
-// the long chain over K is ordinary f32 summation.
+// which would bias a long chain.  So each term's products over one K step of
+// TK = 64 (32 above three limbs) go into a fresh fragment, and that partial
+// sum is then added into the running f32 accumulator by the CUDA cores with
+// round-to-nearest: the long chain over K is ordinary f32 summation.  Both
+// bodies fold at the same grain, so the plain versions describe both.
 //
 // The limb subtraction r - float(bf16(r)) is exact in f32 (the difference
 // of a float and its own leading bits is representable), so it cannot be
@@ -62,28 +68,57 @@
 // fused into an FMA, which keeps the statement true by construction.
 // No -use_fast_math: flushing denormals would change limb extraction.
 //
-// Bound on this card: for decode shapes (M = a few rows) the weight B is
-// read once and dominates — the bound is bytes / memory rate; for large M
-// it is passes * 2MKN / bf16 tensor-core rate.  Split-K fills the card with
-// blocks (about two resident per SM), and at M < 32 a warp whose 16 fragment
-// rows lie wholly below the output skips its MMAs.  What bounds a split block
-// then is a fixed cost per K step (two barriers, the peel into limb planes)
-// and, for the double-f32 variant, the issue of its TwoSum folds (56 f32
-// adds a term and a step in each thread, in the two warps that are not idle
-// at M = 4).  Every instantiation keeps one TK-deep register prefetch in
-// flight during the MMAs.  No cp.async, TMA or wgmma: a cp.async ring of
-// three or four operand stages in place of the prefetch timed no faster for
-// the DD kernel (PERF.md; `tools/dd_variants.py` rebuilds it as a variant).
-// Measured times stand beside the bound in PERF.md.
+// Bound on this card.  At the decode shapes the weight B is read once and
+// dominates: the bound is bytes / memory rate, by about 50x (4x1024x2816 at
+// k = 2: 3.4 us to read 11.5 MB against 0.07 us of bf16 MMAs).  For large M
+// it is passes * 2MKN / bf16 tensor-core rate.
+//
+// The skinny body serves the bytes.  What held the tiled body back at
+// M <= 16 was: a 32 x 32 tile of four 16 x 16 wmma fragments, of which two
+// warps had no rows at M = 4 and the others 12 zero rows in 16; one K step
+// of B in registers, one element a thread (8 KB in flight a block, about
+// two blocks an SM at 255 registers: far below the ~30 KB an SM needs in
+// flight at 3.35 TB/s and ~1 us of latency); and a fixed cost per K step —
+// the peel into KMAX limb planes in shared memory between two barriers.
+// The skinny body instead
+//  * computes C^T = B^T A^T with `mma.sync.m16n8k16` (swap-AB): 16 weight
+//    columns fill the MMA's 16-row side, the activation's rows its 8-column
+//    side (NF = 1 fragment at M <= 8, 2 at M <= 16).  Each of a block's
+//    four warps owns 16 of its SK_TN = 64 weight columns, so every warp works
+//    at every M;
+//  * streams raw f32 tiles of B (SK_TK x SK_TN) and A (16 x SK_TK) into a
+//    ring of SK_STAGES = 3 stages in dynamic shared memory with `cp.async`
+//    16-byte copies (4-byte copies with zero fill where the operand is not
+//    16-byte aligned: base address, row length or block), two steps ahead
+//    of the MMAs: 34 KB of weight in flight a block and three blocks an SM
+//    (their 64.5 KB rings fit its 228 KB; `__launch_bounds__` holds the
+//    registers to 168 a thread so that they fit too), ~100 KB an SM;
+//  * peels limbs in registers: each lane reads its fragment elements as f32
+//    from the ring (rows padded so those reads hit 32 distinct banks) and
+//    peels pairs along K with `__floats2bfloat162_rn` and `__fsub_rn`, as
+//    `peel4` does, so the limbs never touch shared memory;
+//  * passes one barrier a K step, which both publishes the step's tiles and
+//    frees the stage the next copies refill.
+//
+// The tiled body keeps, for M > 16 and the double-f32 kernel: a TM x TN =
+// 32 x 32 thread-block tile of 16 x 16 wmma fragments, one TK-deep register
+// prefetch in flight during the MMAs, and the peel into limb planes.  There
+// a block's fixed cost per K step (two barriers, the peel) and, for the DD
+// variant, the issue of its TwoSum folds (56 f32 adds a term and a step in
+// each thread) bound it.  A cp.async ring of three or four operand stages in
+// place of the DD prefetch timed no faster for the DD kernel (PERF.md;
+// `tools/dd_variants.py` rebuilds it as a variant), because the TwoSum
+// folds, not the loads, bound it.  Measured times stand beside the bound in
+// PERF.md.
 //
 // The DD load path.  A thread loads and peels chunks of four consecutive
 // elements: one 16-byte load when the operand allows it (16-byte aligned
 // base, row length and bk or bn multiples of four: `vec_a` / `vec_b`), else
 // up to four 4-byte loads, with elements out of range zero; `peel4` turns a
 // chunk into its limbs with two bf16x2 conversions and one 8-byte store a
-// limb.  The limb and mode-map instantiations keep one element a thread, so
-// their code and registers are unchanged.  Same limbs, same terms folded in
-// the same order, so the load path changes no bit.
+// limb.  The tiled body's limb and mode-map instantiations (M > 16) keep one
+// element a thread.  Same limbs, same terms folded in the same order, so the
+// load path changes no bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +146,78 @@ struct Tiling {
   static constexpr int A_PER_THREAD = TM * TK / THREADS;
   static constexpr int B_PER_THREAD = TK * TN / THREADS;
 };
+
+// The weight-streaming body's geometry (see the top of this file).
+constexpr int SKINNY_M_MAX = 16;  // largest M the skinny body serves
+constexpr int SK_TM = 16;         // rows a block covers: NF n8 fragments
+constexpr int SK_TN = 64;         // weight columns a block streams
+constexpr int SK_TK = 64;         // K step: the fold grain, as Tiling<1..3>::TK
+constexpr int SK_WARPS = 4;       // each owns 16 weight columns (one m16 tile)
+constexpr int SK_THREADS = 32 * SK_WARPS;
+constexpr int SK_STAGES = 3;      // ring stages: SK_STAGES - 1 steps in flight
+constexpr int SK_BLOCKS_PER_SM = 3;  // resident blocks: ring and registers leave room
+// Row strides of a ring stage, in floats: 16-byte multiples for the copies,
+// and 2 * SK_B_LD = 8 (mod 32) and SK_A_LD = 8 (mod 32) so that a warp's
+// fragment reads (rows 2t, columns g; rows g, columns 2t) hit 32 banks.
+constexpr int SK_B_LD = SK_TN + 4;
+constexpr int SK_A_LD = SK_TK + 8;
+constexpr int SK_STAGE_FLOATS = SK_TK * SK_B_LD + SK_TM * SK_A_LD;
+constexpr int SK_SMEM_BYTES = SK_STAGES * SK_STAGE_FLOATS * 4;  // dynamic
+static_assert(SK_TN == 16 * SK_WARPS, "a warp owns one m16 tile of columns");
+static_assert(SK_TK % 16 == 0 && SK_TM == 16, "k16 MMA steps, two n8 fragments");
+// the blocks an SM holds at once: their rings and 1 KB each the runtime keeps
+static_assert(SK_BLOCKS_PER_SM * (SK_SMEM_BYTES + 1024) <= 228 * 1024,
+              "the ring leaves room for SK_BLOCKS_PER_SM blocks an SM");
+
+// cp.async from global to shared memory: `src_bytes` of the `bytes` are
+// read, the rest of the destination is zero filled.  16 bytes go as .cg
+// (L2 only), 4 bytes as .ca; the source must be aligned to `bytes`.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major):
+// the PTX fragment layouts, lane = 4 * g + t: a holds rows g and g + 8,
+// columns 2t, 2t + 1 (+ 8); b rows 2t, 2t + 1 (+ 8), column g; d rows g and
+// g + 8, columns 2t, 2t + 1.  In each 32-bit register the lower column (a)
+// or row (b) sits in the low half.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Peel two f32 values (x at the lower K index) into KMAX bf16x2 limbs,
+// limb l into out[l][slot]: the round-to-nearest conversion and exact
+// subtraction of `peel4`, so the same limbs.
+template <int KMAX, int SLOTS>
+__device__ __forceinline__ void peel2(float x, float y, uint32_t (&out)[KMAX][SLOTS],
+                                      int slot) {
+#pragma unroll
+  for (int l = 0; l < KMAX; ++l) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+    out[l][slot] = *reinterpret_cast<const uint32_t*>(&p);
+    x = __fsub_rn(x, __low2float(p));
+    y = __fsub_rn(y, __high2float(p));
+  }
+}
 
 // Knuth's TwoSum, folded into a (sum, compensation) pair: s + c gains p
 // with no rounding error lost.  Every add and subtract is an explicit
@@ -408,6 +515,222 @@ __device__ __forceinline__ void rmpm_gemm_body(
     store(acc, out);
   }
 }
+
+// The weight-streaming body: the limb and mode-map kernels at M <=
+// SKINNY_M_MAX and KMAX <= 3 (the design is at the top of this file).  The
+// same arguments, K walk, split ranges, map lookup, terms, term order and
+// fold grain as `rmpm_gemm_body`; a block covers SK_TM x SK_TN of ONE map
+// tile, and its SK_THREADS threads run with SK_SMEM_BYTES of dynamic shared
+// memory (allowed once per kernel by `allow_skinny`).  NF = 1 serves
+// M <= 8 with one n8 activation fragment, NF = 2 serves M <= 16.
+template <int KMAX, int NF>
+__device__ __forceinline__ void rmpm_skinny_body(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ C, const int* __restrict__ map, int map_ndim, int M,
+    int N, int K, int bm, int bn, int bk) {
+  static_assert(KMAX >= 1 && KMAX <= 3 && (NF == 1 || NF == 2), "f32 ladder, M <= 16");
+  constexpr int TERMS = KMAX * (KMAX + 1) / 2;
+  extern __shared__ __align__(16) float sk_ring[];
+
+  const int sub_m = (bm + SK_TM - 1) / SK_TM;  // thread blocks per map tile, rows
+  const int sub_n = (bn + SK_TN - 1) / SK_TN;
+  const int gn = (N + bn - 1) / bn;
+  const int gk = (K + bk - 1) / bk;
+  const int ti_map = blockIdx.y / sub_m;
+  const int tj_map = blockIdx.x / sub_n;
+  const int row0 = ti_map * bm + (blockIdx.y % sub_m) * SK_TM;
+  const int col0 = tj_map * bn + (blockIdx.x % sub_n) * SK_TN;
+  const int row_end = min(min(row0 + SK_TM, (ti_map + 1) * bm), M);
+  const int col_end = min(min(col0 + SK_TN, (tj_map + 1) * bn), N);
+  if (row0 >= row_end || col0 >= col_end) return;  // whole block, uniformly
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' group and thread
+  const int wn = (tid >> 5) * 16;          // this warp's columns in the block
+  const bool idle = col0 + wn >= col_end;  // warp-uniform: no column to store
+
+  // this split's range [t_begin, t_end) of the block's K walk
+  const int per_slab = (bk + SK_TK - 1) / SK_TK;
+  const int steps = k_steps(K, bk, SK_TK);
+  const int t_begin = (int)((long long)steps * blockIdx.z / gridDim.z);
+  const int t_end = (int)((long long)steps * (blockIdx.z + 1) / gridDim.z);
+  float* const out = C + (long long)blockIdx.z * M * N;
+  const long long e_map = (long long)ti_map * gn + tj_map;
+
+  // 16-byte copies need 16-byte-aligned chunks: an aligned base, and rows
+  // and chunk starts (k0 a multiple of bk, col0 of bn) at multiples of 4
+  const bool vec_a = ((reinterpret_cast<uintptr_t>(A) & 15) | (K & 3) | (bk & 3)) == 0;
+  const bool vec_b = ((reinterpret_cast<uintptr_t>(B) & 15) | (N & 3) | (bn & 3)) == 0;
+  // Copy the first `valid` of the four elements at src to dst, zero the
+  // rest; `base`, always a valid address, stands in when none is read.
+  auto copy4 = [&](float* dst, const float* src, int valid, bool vec, const float* base) {
+    if (vec) {
+      cp_async16(dst, valid > 0 ? src : base, 4 * valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : base, e < valid ? 4 : 0);
+    }
+  };
+  // Issue step t's copies into ring stage st: B's SK_TK x SK_TN tile, then
+  // A's SK_TM x SK_TK tile, in chunks of four; out of range is zero, which
+  // adds exact zeros to the products.
+  auto issue = [&](int t, int st) {
+    float* const sb = sk_ring + st * SK_STAGE_FLOATS;
+    float* const sa = sb + SK_TK * SK_B_LD;
+    const int k0 = (t / per_slab) * bk + (t % per_slab) * SK_TK;
+    const int k_end = min((t / per_slab + 1) * bk, K);
+#pragma unroll
+    for (int i = 0; i < SK_TK * SK_TN / 4 / SK_THREADS; ++i) {
+      const int q = tid + i * SK_THREADS;
+      const int r = q / (SK_TN / 4), c = (q % (SK_TN / 4)) * 4;
+      const int k = k0 + r;
+      const int valid = k < k_end ? max(0, min(4, col_end - (col0 + c))) : 0;
+      copy4(sb + r * SK_B_LD + c, B + (long long)k * N + col0 + c, valid, vec_b, B);
+    }
+#pragma unroll
+    for (int i = 0; i < SK_TM * SK_TK / 4 / SK_THREADS; ++i) {
+      const int q = tid + i * SK_THREADS;
+      const int r = q / (SK_TK / 4), c = (q % (SK_TK / 4)) * 4;
+      const int valid = row0 + r < row_end ? max(0, min(4, k_end - (k0 + c))) : 0;
+      copy4(sa + r * SK_A_LD + c, A + (long long)(row0 + r) * K + k0 + c, valid, vec_a, A);
+    }
+  };
+
+  // acc[f] is C^T's 16 x 8 fragment: columns wn + g (+ 8), rows 8f + 2tq (+ 1)
+  float acc[NF][4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.0f;
+
+  // One K step on ring stage st: every retained term's products over the
+  // step go into a fresh fragment of their own (k16 MMAs in K order), which
+  // is then folded into acc with round-to-nearest, high order first.
+  auto run_step = [&](int st, int k_tile) {
+    const float* const sb = sk_ring + st * SK_STAGE_FLOATS;
+    const float* const sa = sb + SK_TK * SK_B_LD;
+    float part[TERMS][NF][4];
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[p][f][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < SK_TK; ks += 16) {
+      // the weight's fragment (B^T: rows = columns wn + g (+ 8) of B, columns
+      // = K ks + 2tq (+ 1) (+ 8)), peeled into limbs
+      const float* const w = sb + (ks + 2 * tq) * SK_B_LD + wn + g;
+      uint32_t wl[KMAX][4];
+      peel2<KMAX, 4>(w[0], w[SK_B_LD], wl, 0);
+      peel2<KMAX, 4>(w[8], w[SK_B_LD + 8], wl, 1);
+      peel2<KMAX, 4>(w[8 * SK_B_LD], w[9 * SK_B_LD], wl, 2);
+      peel2<KMAX, 4>(w[8 * SK_B_LD + 8], w[9 * SK_B_LD + 8], wl, 3);
+      // the activation's fragments (A^T: K ks + 2tq (+ 1) (+ 8), row 8f + g)
+      uint32_t xl[NF][KMAX][2];
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const float* const x = sa + (8 * f + g) * SK_A_LD + ks + 2 * tq;
+        const float2 lo = *reinterpret_cast<const float2*>(x);
+        const float2 hi = *reinterpret_cast<const float2*>(x + 8);
+        peel2<KMAX, 2>(lo.x, lo.y, xl[f], 0);
+        peel2<KMAX, 2>(hi.x, hi.y, xl[f], 1);
+      }
+      int p = 0;
+#pragma unroll
+      for (int s = KMAX - 1; s >= 0; --s) {
+#pragma unroll
+        for (int ti = 0; ti <= s; ++ti, ++p) {
+          if (s < k_tile) {  // uniform across the block
+#pragma unroll
+            for (int f = 0; f < NF; ++f) mma_16816(part[p][f], wl[s - ti], xl[f][ti]);
+          }
+        }
+      }
+    }
+    int p = 0;
+#pragma unroll
+    for (int s = KMAX - 1; s >= 0; --s) {
+#pragma unroll
+      for (int ti = 0; ti <= s; ++ti, ++p) {
+        if (s < k_tile) {
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[f][e] = __fadd_rn(acc[f][e], part[p][f][e]);
+        }
+      }
+    }
+  };
+
+  // The ring: steps i + 1 .. i + SK_STAGES - 1 are in flight while step i
+  // runs.  One barrier a step: after it, step i's tiles are visible to every
+  // thread, and every thread is done with step i - 1, whose stage the next
+  // copies refill.
+  // The map entry of step t: its slab's (the map's third axis), KMAX
+  // without a map.  Each is loaded a step ahead of its use.
+  auto tile_k = [&](int t) {
+    if (map == nullptr) return KMAX;
+    return (map_ndim == 3) ? map[e_map * gk + t / per_slab] : map[e_map];
+  };
+  const int n_steps = t_end - t_begin;
+  int k_tile = n_steps > 0 ? tile_k(t_begin) : KMAX;
+#pragma unroll
+  for (int j = 0; j < SK_STAGES - 1; ++j) {
+    if (j < n_steps) issue(t_begin + j, j);
+    cp_async_commit();  // one group a step (empty past the range)
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<SK_STAGES - 2>();  // this thread's copies of step i have landed
+    __syncthreads();
+    const int j = i + SK_STAGES - 1;
+    if (j < n_steps) issue(t_begin + j, j % SK_STAGES);
+    cp_async_commit();
+    const int k_next = i + 1 < n_steps ? tile_k(t_begin + i + 1) : KMAX;
+    if (!idle) run_step(i % SK_STAGES, k_tile);
+    k_tile = k_next;
+  }
+  cp_async_wait<0>();  // no copy outlives the block (only empty groups remain)
+
+  // C^T's fragment stored transposed: element e of acc[f] is C[m][n] with
+  // m = 8f + 2tq + (e & 1), n = wn + g + 8 * (e >> 1)
+  if (!idle) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + 8 * f + 2 * tq + (e & 1);
+        const int c = col0 + wn + g + 8 * (e >> 1);
+        if (r < row_end && c < col_end) out[(long long)r * N + c] = acc[f][e];
+      }
+  }
+}
+
+// Grid of the skinny body: one block per SK_TM x SK_TN piece of each map
+// tile, once for each of `splits` K splits.
+inline dim3 skinny_grid(int M, int N, int bm, int bn, int splits) {
+  const int gm = (M + bm - 1) / bm, gn = (N + bn - 1) / bn;
+  const int sub_m = (bm + SK_TM - 1) / SK_TM, sub_n = (bn + SK_TN - 1) / SK_TN;
+  return dim3((unsigned)(gn * sub_n), (unsigned)(gm * sub_m), (unsigned)splits);
+}
+
+// Allow a skinny kernel its ring (more dynamic shared memory than the 48 KB a
+// launch gets unasked) and prefer the largest shared-memory carveout, so
+// that SK_BLOCKS_PER_SM blocks fit an SM.  Once per kernel and device, before
+// the first launch (and so before any capture): never per launch.
+template <typename Kernel>
+inline cudaError_t allow_skinny(Kernel* kernel) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SK_SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// The body a limb or mode-map launch of M rows at `limbs` (kmax) runs.
+inline bool use_skinny(int M, int limbs) { return M <= SKINNY_M_MAX && limbs <= 3; }
 
 // Grid of thread blocks covering every map tile of an (M, N) output, once
 // for each of `splits` K splits.

@@ -8,10 +8,16 @@
 // ti + tj < map[...].  The map lives in device memory and each thread block
 // loads its own entry, so changing a mode changes one int32 and builds
 // nothing; this is the run-time reconfiguration path of the serving engine.
+// It runs the limb kernel's bodies by the same rule (`rmpm::use_skinny`,
+// M only, since kmax <= 3): at M <= 16 the weight-streaming body
+// (swap-AB mma.sync, a cp.async ring of raw f32 tiles, limbs peeled in
+// registers; bound by the weight's bytes), above it the tiled wmma body.
 // The K walk is split S ways across thread blocks exactly as in the limb
 // kernel (each step reads the map entry of its own slab), so uniform maps
 // stay bit-identical to it at every S.  Datapath, split-K, bound and design
 // notes: rmpm_gemm.cuh (shared with limb_matmul).
+#include <initializer_list>
+
 #include "rmpm_gemm.cuh"
 
 namespace {
@@ -24,15 +30,36 @@ tile_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
   rmpm::rmpm_gemm_body<KMAX>(A, B, C, map, map_ndim, M, N, K, bm, bn, bk);
 }
 
+template <int KMAX, int NF>
+__global__ void __launch_bounds__(rmpm::SK_THREADS, rmpm::SK_BLOCKS_PER_SM)
+tile_matmul_skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ C, const int* __restrict__ map,
+                          int map_ndim, int M, int N, int K, int bm, int bn, int bk) {
+  rmpm::rmpm_skinny_body<KMAX, NF>(A, B, C, map, map_ndim, M, N, K, bm, bn, bk);
+}
+
 template <int KMAX>
 int launch(const float* a, const float* b, float* c, float* ws, const int* map,
            int map_ndim, int m, int n, int k, int bm, int bn, int bk,
            int splits, cudaStream_t stream) {
   if (!rmpm::splits_ok(splits, ws, k, bk, rmpm::Tiling<KMAX>::TK))
     return (int)cudaErrorInvalidValue;
-  tile_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
-                             rmpm::THREADS, 0, stream>>>(
-      a, b, splits > 1 ? ws : c, map, map_ndim, m, n, k, bm, bn, bk);
+  float* const dst = splits > 1 ? ws : c;
+  if (rmpm::use_skinny(m, KMAX)) {
+    const dim3 grid = rmpm::skinny_grid(m, n, bm, bn, splits);
+    if (m <= 8)
+      tile_matmul_skinny_kernel<KMAX, 1><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
+                                           stream>>>(a, b, dst, map, map_ndim, m, n, k,
+                                                     bm, bn, bk);
+    else
+      tile_matmul_skinny_kernel<KMAX, 2><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
+                                           stream>>>(a, b, dst, map, map_ndim, m, n, k,
+                                                     bm, bn, bk);
+  } else {
+    tile_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
+                               rmpm::THREADS, 0, stream>>>(
+        a, b, dst, map, map_ndim, m, n, k, bm, bn, bk);
+  }
   return rmpm::finish_splits(c, ws, m, n, splits, stream);
 }
 
@@ -61,4 +88,19 @@ extern "C" int rmpm_tile_matmul(const void* a, const void* b, void* c,
     case 3: return launch<3>(A, B, C, W, mp, map_ndim, m, n, k, bm, bn, bk, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Allow the skinny kernels their ring on the current device; the wrapper
+// calls it once per device, before the device's first launch.
+// Returns the first error of cudaFuncSetAttribute, or 0.
+extern "C" int rmpm_tile_matmul_prepare() {
+  cudaError_t err = cudaSuccess;
+  for (cudaError_t e : {rmpm::allow_skinny(tile_matmul_skinny_kernel<1, 1>),
+                        rmpm::allow_skinny(tile_matmul_skinny_kernel<1, 2>),
+                        rmpm::allow_skinny(tile_matmul_skinny_kernel<2, 1>),
+                        rmpm::allow_skinny(tile_matmul_skinny_kernel<2, 2>),
+                        rmpm::allow_skinny(tile_matmul_skinny_kernel<3, 1>),
+                        rmpm::allow_skinny(tile_matmul_skinny_kernel<3, 2>)})
+    if (err == cudaSuccess) err = e;
+  return (int)err;
 }

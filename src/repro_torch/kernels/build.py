@@ -37,6 +37,8 @@ LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0,
             "limb_matmul_dd": 0}
 
 _LIB = None
+#: devices whose kernels ``prepare_device`` has prepared
+_PREPARED: set[int] = set()
 
 
 def csrc_dir() -> Path:
@@ -125,6 +127,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rmpm_limb_matmul_dd.restype = i
     lib.rmpm_error_string.argtypes = [i]
     lib.rmpm_error_string.restype = ctypes.c_char_p
+    # per device: allow the weight-streaming kernels their shared-memory ring
+    for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
+        fn.argtypes = []
+        fn.restype = i
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
@@ -135,6 +141,22 @@ def library(verbose: bool = False) -> ctypes.CDLL:
         _bind(lib)
         _LIB = lib
     return _LIB
+
+
+def prepare_device(lib: ctypes.CDLL) -> None:
+    """Once per device, on the current device before its first launch of the
+    limb or mode-map kernel: allow their weight-streaming instantiations the
+    dynamic shared memory of their ring (``rmpm::allow_skinny``).  The
+    port's CUDA graphs capture a step only after running it once eagerly
+    (``serve.graphs.CompiledStep``), so this runs before any capture."""
+    import torch
+
+    index = torch.cuda.current_device()
+    if index in _PREPARED:
+        return
+    for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
+        check_launch(lib, fn(), "allowing the skinny kernels their shared memory")
+    _PREPARED.add(index)
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:

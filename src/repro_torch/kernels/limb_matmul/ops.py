@@ -22,14 +22,32 @@ order s = 0..S-1: the limb and mode-map kernels add f32 partials
 ``splits=`` only as an override for timing, and the plain versions take it
 so they combine the same partials in the same order.
 
-At the serving shapes the kernels' bound is the weight's bytes; what holds
-them off it is a fixed cost per K step (barriers, the peel into limbs) and,
-for the double-f32 kernel, its TwoSum folds (``csrc/rmpm_gemm.cuh``).  All
-of them prefetch one K step into registers; the double-f32 kernel loads and
-peels four consecutive elements a thread, with 16-byte loads where the
-operand's base pointer, row length and blocks allow them and 4-byte loads
-elsewhere (a sliced operand, K = 33).  The kernel decides that from the
-pointers it is given, so no caller can misalign it.
+Two device bodies (``csrc/rmpm_gemm.cuh``) serve the limb and mode-map
+kernels, chosen by M (``gemm_body``, the mirror of ``rmpm::use_skinny``):
+
+* M <= ``SKINNY_M_MAX`` (16) at up to three limbs — every decode step — runs
+  the weight-streaming body.  There the bound is the weight's bytes, by
+  about 50x, and what held the tiled body off it was too few bytes in flight
+  and a fixed cost per K step.  So it computes C^T = B^T A^T with
+  ``mma.sync`` (swap-AB: weight columns on the MMA's 16-row side), streams
+  raw f32 tiles through a ``cp.async`` ring of three stages (two K steps in
+  flight, three blocks an SM), and peels limbs in registers with one barrier
+  a step.
+* Every other launch (M > 16, the limb kernel at 4-6 limbs, and the
+  double-f32 kernel at every M) runs the tiled ``wmma`` body, which
+  prefetches one K step into registers and peels it into limb planes in
+  shared memory.  What bounds it at M > 16 is that fixed cost per K step and,
+  for the double-f32 kernel, its TwoSum folds.  The double-f32 kernel loads
+  and peels four consecutive elements a thread, with 16-byte loads where the
+  operand's base pointer, row length and blocks allow them and 4-byte loads
+  elsewhere (a sliced operand, K = 33); the skinny body copies the same way.
+  The kernel decides that from the pointers it is given, so no caller can
+  misalign it.
+
+Both bodies fold each term's products into the f32 accumulator once per K
+step of ``k_step(k)``, so the walk, the splits and the plain versions below
+describe both; ``split_k`` sees the body's thread-block tile and residency
+(``THREAD_TILE``, ``BLOCKS_PER_SM``).
 """
 from __future__ import annotations
 
@@ -42,11 +60,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.blocking import ceil_to, clamp_block
 
 DEFAULT_BLOCK = (128, 128, 512)
-#: thread-block tile of the CUDA kernels (``TM x TN`` in ``csrc/rmpm_gemm.cuh``)
-THREAD_TILE = (32, 32)
-#: resident thread blocks per SM that ``split_k`` fills: the body uses up to
-#: 255 registers x 128 threads, so two blocks fit an SM's 65,536 registers
-BLOCKS_PER_SM = 2
+#: the largest M the weight-streaming body serves (``rmpm::SKINNY_M_MAX``)
+SKINNY_M_MAX = 16
+#: thread-block tile (rows, cols) of each body: the tiled body's ``TM x TN``
+#: and the weight-streaming body's ``SK_TM x SK_TN`` (``csrc/rmpm_gemm.cuh``)
+THREAD_TILE = {"wide": (32, 32), "skinny": (16, 64)}
+#: resident thread blocks per SM that ``split_k`` fills, by body: the tiled
+#: body uses up to 255 registers x 128 threads, so two blocks fit an SM's
+#: 65,536 registers; the skinny body's ring of 64.5 KB leaves room for three
+#: in an SM's 228 KB of shared memory, and its launch bounds hold its
+#: registers to what three blocks may use (``rmpm::SK_BLOCKS_PER_SM``)
+BLOCKS_PER_SM = {"wide": 2, "skinny": 3}
 #: the longest stretch of K one split sums into its f32 accumulators.  The
 #: accumulation error grows with the stretch: unsplit at K = 33792 (the
 #: command-r+ down projection, 4 x 33792 x 12288, k = 3) the limb kernel lay
@@ -124,24 +148,33 @@ def reduce_splits(parts: list[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def gemm_blocks(m: int, n: int, bm: int, bn: int) -> int:
-    """Thread blocks of one split of the kernels' grid (``rmpm::gemm_grid``)
-    at the clamped blocks."""
-    tm, tn = THREAD_TILE
+def gemm_body(m: int, k: int) -> str:
+    """The body a limb or mode-map launch of ``m`` rows at ``k`` limbs (kmax
+    for the map) runs: ``"skinny"`` at M <= ``SKINNY_M_MAX`` and k <= 3,
+    else ``"wide"`` (``rmpm::use_skinny``).  On the f32 ladder it depends on
+    M only, so a uniform map and the limb kernel at the same M run one body.
+    The double-f32 kernel always runs ``"wide"``."""
+    return "skinny" if m <= SKINNY_M_MAX and k <= 3 else "wide"
+
+
+def gemm_blocks(m: int, n: int, bm: int, bn: int, body: str = "wide") -> int:
+    """Thread blocks of one split of the body's grid (``rmpm::gemm_grid``,
+    ``rmpm::skinny_grid``) at the clamped blocks."""
+    tm, tn = THREAD_TILE[body]
     return (-(-m // bm) * -(-bm // tm)) * (-(-n // bn) * -(-bn // tn))
 
 
 def split_k(m: int, n: int, kdim: int, *, bm: int, bn: int, bk: int, tk: int,
-            sms: int) -> int:
+            sms: int, body: str = "wide") -> int:
     """Number of K splits for the limb and mode-map kernels: enough to put
-    about ``BLOCKS_PER_SM`` thread blocks on each of ``sms`` SMs, and enough
-    that no split sums more than ``MAX_SPLIT_LEN`` of K, never more than the
-    walk has steps; 1 once the (M, N) grid alone has more blocks than the
-    card has SMs and K is within ``MAX_SPLIT_LEN``.  Depends on the problem,
-    the clamped blocks, the K step and the card only — never on the limb
-    count, which keeps uniform map == limb kernel and runtime == static
-    bitwise."""
-    want = max(BLOCKS_PER_SM * sms // max(gemm_blocks(m, n, bm, bn), 1),
+    about ``BLOCKS_PER_SM[body]`` thread blocks on each of ``sms`` SMs, and
+    enough that no split sums more than ``MAX_SPLIT_LEN`` of K, never more
+    than the walk has steps; 1 once the (M, N) grid alone has more blocks
+    than the card holds and K is within ``MAX_SPLIT_LEN``.  Depends on the
+    problem, the clamped blocks, the K step, the body (by M, ``gemm_body``)
+    and the card only — never on the limb count, which keeps uniform map ==
+    limb kernel and runtime == static bitwise."""
+    want = max(BLOCKS_PER_SM[body] * sms // max(gemm_blocks(m, n, bm, bn, body), 1),
                -(-kdim // MAX_SPLIT_LEN))
     return max(1, min(want, k_steps(kdim, bk, tk)))
 
@@ -152,16 +185,17 @@ def _sm_count(index: int) -> int:
 
 
 def resolve_splits(splits: int | None, device: torch.device, m: int, n: int, kdim: int, *,
-                   bm: int, bn: int, bk: int, tk: int) -> int:
+                   bm: int, bn: int, bk: int, tk: int, body: str = "wide") -> int:
     """The S a wrapper runs at: ``splits`` when given (checked against the
-    walk), else ``split_k`` for the card of a CUDA ``device`` and 1 (the
-    unsplit walk) for the CPU's plain versions."""
+    walk), else ``split_k`` for ``body`` on the card of a CUDA ``device``
+    and 1 (the unsplit walk) for the CPU's plain versions."""
     steps = k_steps(kdim, bk, tk)
     if splits is None:
         if device.type != "cuda":
             return 1
         index = device.index if device.index is not None else torch.cuda.current_device()
-        return split_k(m, n, kdim, bm=bm, bn=bn, bk=bk, tk=tk, sms=_sm_count(index))
+        return split_k(m, n, kdim, bm=bm, bn=bn, bk=bk, tk=tk, sms=_sm_count(index),
+                       body=body)
     if not 1 <= splits <= steps:
         raise ValueError(f"splits must lie in [1, {steps}] (the K walk's steps), got {splits}")
     return int(splits)
@@ -232,6 +266,7 @@ def _launch(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int, bk: in
     ws = split_workspace(splits, m, n, a2.device)
     lib = build.library()
     with torch.cuda.device(a2.device):
+        build.prepare_device(lib)
         code = lib.rmpm_limb_matmul(
             a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), m, n, kdim, k,
@@ -273,7 +308,8 @@ def limb_matmul(
     _, (bm_, bn_, bk_) = tile_grid(m, n, kdim, bm=bm, bn=bn, bk=bk)
     if (a2.is_cuda or b2.is_cuda) and m == 0:
         return torch.zeros((*lead, n), dtype=torch.float32, device=a2.device)
-    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k))
+    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k),
+                       body=gemm_body(m, k))
     if a2.is_cuda or b2.is_cuda:
         out = _launch(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
     else:

@@ -28,6 +28,7 @@ from repro_torch.kernels.limb_matmul.ops import (
     DEFAULT_BLOCK,  # noqa: F401  (re-exported: the planner reads it here)
     check_gemm_operands,
     extract_limbs,
+    gemm_body,
     k_step,
     reduce_splits,
     resolve_splits,
@@ -86,6 +87,7 @@ def _launch(a2, b2, mode_map, kmax, bm, bn, bk, splits) -> torch.Tensor:
     ws = split_workspace(splits, m, n, a2.device)
     lib = build.library()
     with torch.cuda.device(a2.device):
+        build.prepare_device(lib)
         code = lib.rmpm_tile_matmul(
             a2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), mode_map.data_ptr(),
@@ -137,7 +139,8 @@ def tile_matmul(
             f"flattened matmul ({m}, {kdim}) @ ({kdim}, {n}) at blocks "
             f"({bm_}, {bn_}, {bk_})"
         )
-    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(kmax))
+    s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(kmax),
+                       body=gemm_body(m, kmax))
     if a2.is_cuda or b2.is_cuda:
         mode_map = mode_map.to(device=a2.device, dtype=torch.int32).contiguous()
         out = _launch(a2.contiguous(), b2.contiguous(), mode_map, kmax, bm_, bn_, bk_, s)

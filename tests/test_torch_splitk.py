@@ -9,6 +9,8 @@ one layout.  Tolerances: against the reference's kernels (interpret mode)
 (splitting K reorders the f32 accumulation); every in-port identity bitwise.
 """
 import functools
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -27,7 +29,10 @@ from repro_torch.kernels.limb_matmul import ops as limb_ops
 from repro_torch.kernels.limb_matmul.ops import (
     BLOCKS_PER_SM,
     MAX_SPLIT_LEN,
+    SKINNY_M_MAX,
+    THREAD_TILE,
     gemm_blocks,
+    gemm_body,
     k_step,
     k_steps,
     k_walk,
@@ -71,8 +76,10 @@ def _close(got, want, tol=TOL):
 
 
 def _plan(m, kd, n, k=3, sms=H100_SMS, **blk):
+    """The S the limb and mode-map wrappers plan on the card."""
     _, (bm, bn, bk) = tile_grid(m, n, kd, **blk)
-    return split_k(m, n, kd, bm=bm, bn=bn, bk=bk, tk=k_step(k), sms=sms)
+    return split_k(m, n, kd, bm=bm, bn=bn, bk=bk, tk=k_step(k), sms=sms,
+                   body=gemm_body(m, k))
 
 
 # ---------------------------------------------------------------------------
@@ -123,14 +130,17 @@ def test_splits_cover_every_step_of_the_walk_once_and_in_order(p):
 def test_split_k_fills_the_card_and_stops_when_the_grid_does(p):
     m, n, kd, bm, bn, bk, tk, sms = p
     _, (bm, bn, bk) = tile_grid(m, n, kd, bm=bm, bn=bn, bk=bk)
-    s = split_k(m, n, kd, bm=bm, bn=bn, bk=bk, tk=tk, sms=sms)
-    blocks = gemm_blocks(m, n, bm, bn)
-    assert 1 <= s <= k_steps(kd, bk, tk)
-    if blocks > sms:
-        assert s == 1
-    else:
-        assert s == min(BLOCKS_PER_SM * sms // blocks, k_steps(kd, bk, tk))
-    assert blocks * s <= max(BLOCKS_PER_SM * sms, blocks)
+    for body in ("wide", "skinny"):
+        s = split_k(m, n, kd, bm=bm, bn=bn, bk=bk, tk=tk, sms=sms, body=body)
+        blocks = gemm_blocks(m, n, bm, bn, body)
+        per_sm = BLOCKS_PER_SM[body]
+        assert 1 <= s <= k_steps(kd, bk, tk)
+        # the grid alone fills the card (blocks > sms at two blocks an SM)
+        if 2 * blocks > per_sm * sms:
+            assert s == 1
+        else:
+            assert s == min(per_sm * sms // blocks, k_steps(kd, bk, tk))
+        assert blocks * s <= max(per_sm * sms, blocks)
 
 
 @pytest.mark.parametrize("m,kd,n", [(4, 33792, 12288), (48, 33792, 12288), (4, 16385, 9000),
@@ -146,7 +156,8 @@ def test_no_split_sums_more_than_max_split_len(m, kd, n):
     walk = k_walk(kd, bk, tk)
     for t0, t1 in split_ranges(len(walk), s):
         assert walk[t1 - 1][2] - walk[t0][1] <= MAX_SPLIT_LEN
-    fill = BLOCKS_PER_SM * H100_SMS // gemm_blocks(m, n, bm, bn)
+    body = gemm_body(m, 3)
+    fill = BLOCKS_PER_SM[body] * H100_SMS // gemm_blocks(m, n, bm, bn, body)
     if kd <= MAX_SPLIT_LEN:
         assert s == max(1, min(fill, len(walk)))
     else:
@@ -162,7 +173,7 @@ def test_split_k_is_the_same_at_every_f32_ladder_limb_count(m, kd, n):
 
 
 @pytest.mark.parametrize("m,kd,n,want", [
-    (4, 1024, 1024, 8), (4, 2816, 1024, 8), (4, 1024, 2816, 3),
+    (4, 1024, 1024, 16), (4, 2816, 1024, 24), (4, 1024, 2816, 9),
     (48, 1024, 1024, 4), (48, 2816, 1024, 4), (48, 1024, 2816, 1),
     (1024, 1024, 1024, 1), (4096, 4096, 4096, 1)])
 def test_planned_splits_at_the_serving_and_tuner_shapes_on_132_sms(m, kd, n, want):
@@ -176,10 +187,134 @@ def test_resolve_splits(monkeypatch):
     monkeypatch.setattr(limb_ops, "_sm_count", lambda index: H100_SMS)
     # (m, n, kdim) = (4, 1024, 2816): 32 blocks, 44 steps
     assert resolve_splits(None, torch.device("cuda", 0), 4, 1024, 2816, **args) == 8
+    # the skinny body's 16 x 64 tile: 16 blocks, three an SM
+    assert resolve_splits(None, torch.device("cuda", 0), 4, 1024, 2816, **args,
+                          body="skinny") == 24
     assert resolve_splits(2, torch.device("cuda", 0), 4, 1024, 2816, **args) == 2
     for bad in (0, 45):
         with pytest.raises(ValueError, match="splits must lie in"):
             resolve_splits(bad, torch.device("cuda", 0), 4, 1024, 2816, **args)
+
+
+# ---------------------------------------------------------------------------
+# the two bodies: the route by M and the Python mirror of the header
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DECODE_ROWS = (1, 4, 8, 16, 17)
+
+
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@functools.lru_cache(maxsize=None)
+def _held_kn():
+    """Every (K, N) ``chip_smoke.py`` holds the limb and mode-map kernels at:
+    the serving model's, the hybrid's and every other family's."""
+    cs = _chip_smoke()
+    return sorted(set(cs.MAIN_KN) | set(cs.HYBRID_KN)
+                  | {kn for _, kns in cs.FAMILY_SHAPES.values() for kn in kns})
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.sampled_from(DECODE_ROWS), st.integers(0, 10**6), st.integers(1, 200))
+def test_split_k_at_decode_rows_is_the_same_at_every_ladder_limb_count(m, pick, sms):
+    """At M in {1, 4, 8, 16, 17} over every held (K, N): one body for the
+    whole f32 ladder (the skinny one up to M = 16), one K step, one S, and S
+    inside the walk and the body's fill of the card."""
+    kn = _held_kn()
+    kd, n = kn[pick % len(kn)]
+    assert len({gemm_body(m, k) for k in (1, 2, 3)}) == 1
+    body = gemm_body(m, 1)
+    assert body == ("skinny" if m <= SKINNY_M_MAX else "wide")
+    plans = {_plan(m, kd, n, k, sms=sms) for k in (1, 2, 3)}
+    assert len(plans) == 1
+    s = plans.pop()
+    _, (bm, bn, bk) = tile_grid(m, n, kd)
+    steps = k_steps(kd, bk, k_step(3))
+    assert 1 <= s <= steps
+    fill = BLOCKS_PER_SM[body] * sms // gemm_blocks(m, n, bm, bn, body)
+    assert s == max(1, min(max(fill, -(-kd // MAX_SPLIT_LEN)), steps))
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS + (48,))
+def test_the_ladder_keeps_one_k_step_and_wider_modes_the_tiled_body(m):
+    assert {k_step(k) for k in (1, 2, 3)} == {64}
+    assert {gemm_body(m, k) for k in (4, 5, 6)} == {"wide"}
+    assert k_step(4) == 32
+
+
+def _header_constants():
+    """The text of ``rmpm_gemm.cuh`` and its ``constexpr int`` constants, as
+    ``chip_smoke.py`` reads them for its ``kernels`` line."""
+    with open(os.path.join(ROOT, "src", "repro_torch", "csrc", "rmpm_gemm.cuh")) as fh:
+        text = fh.read()
+    return text, _chip_smoke().header_constants()
+
+
+def test_the_python_mirror_matches_the_header():
+    text, c = _header_constants()
+    assert c["SKINNY_M_MAX"] == SKINNY_M_MAX == 16
+    assert THREAD_TILE == {"wide": (c["TM"], c["TN"]), "skinny": (c["SK_TM"], c["SK_TN"])}
+    assert BLOCKS_PER_SM["skinny"] == c["SK_BLOCKS_PER_SM"]
+    assert c["SK_TK"] == k_step(3)
+    assert "static constexpr int TK = (KMAX <= 3) ? 64 : 32;" in text
+    # the route: M only on the ladder, as gemm_body
+    assert "inline bool use_skinny(int M, int limbs) { return M <= SKINNY_M_MAX && limbs <= 3; }" \
+        in text
+    # the ring leaves room for the blocks split_k counts on an SM (228 KB),
+    # and its strides keep the copies 16-byte aligned
+    assert c["SK_BLOCKS_PER_SM"] * (c["SK_SMEM_BYTES"] + 1024) <= 228 * 1024
+    assert c["SK_SMEM_BYTES"] > 48 * 1024  # hence the per-device opt-in
+    assert c["SK_B_LD"] % 4 == 0 and c["SK_A_LD"] % 4 == 0 and c["SK_STAGE_FLOATS"] % 4 == 0
+    # the fragment reads hit 32 distinct banks: rows 2t (t < 4) x columns
+    # g (g < 8) of B's stage; rows g x float2 columns 2t of A's, per half-warp
+    assert len({(2 * t * c["SK_B_LD"] + g) % 32 for t in range(4) for g in range(8)}) == 32
+    assert len({(g * c["SK_A_LD"] + 2 * t + e) % 32
+                for t in range(4) for g in range(4) for e in range(2)}) == 32
+
+
+def test_chip_smoke_reads_every_skinny_instantiation_from_ptxas():
+    """The ``kernels`` line's ptxas record: the twelve skinny kernels (limb
+    and map, KMAX 1-3, NF 1-2) with their registers and spills, the tiled
+    ones left out, and the ring's dynamic shared memory from the header."""
+    cs = _chip_smoke()
+    entry = "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__{}' for 'sm_90a'"
+    lines = []
+    for i, (kind, kmax, nf) in enumerate((kind, kmax, nf) for kind in ("limb", "tile")
+                                         for kmax in (1, 2, 3) for nf in (1, 2)):
+        lines += [entry.format(f"{kind}_matmul_skinny_kernelILi{kmax}ELi{nf}EEEvPKfS2_Pf"),
+                  f"    0 bytes stack frame, {i} bytes spill stores, {2 * i} bytes spill loads",
+                  f"ptxas info    : Used {100 + i} registers, used 1 barriers"]
+    lines += [entry.format("limb_matmul_kernelILi3EEEvPKfS2_Pfiiiiii"),
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+              "ptxas info    : Used 255 registers, used 1 barriers, 33792 bytes smem"]
+    got = cs.skinny_ptxas("\n".join(lines))
+    _, consts = _header_constants()
+    assert len(got) == 12
+    assert {g["kernel"] for g in got[:6]} == {"limb_matmul"}
+    assert {g["kernel"] for g in got[6:]} == {"tile_matmul"}
+    assert [(g["kmax"], g["nf"]) for g in got[:6]] == [(k, f) for k in (1, 2, 3) for f in (1, 2)]
+    assert [g["registers"] for g in got] == [100 + i for i in range(12)]
+    assert [g["spill_loads"] for g in got] == [2 * i for i in range(12)]
+    assert {g["static_smem_bytes"] for g in got} == {0}
+    assert {g["dynamic_smem_bytes"] for g in got} == {consts["SK_SMEM_BYTES"]}
+
+
+@pytest.mark.parametrize("m,kd,n,want", [
+    (1, 1024, 1024, 16), (4, 4096, 12288, 2), (4, 12288, 33792, 1), (4, 33792, 12288, 3),
+    (8, 4096, 1024, 24),
+    (16, 1024, 1024, 16), (17, 1024, 1024, 8)])
+def test_planned_splits_of_each_body_on_132_sms(m, kd, n, want):
+    """M <= 16: (M/bm) x (N / 64) blocks of the skinny body, three an SM;
+    M = 17: the tiled body's 32 x 32 tiles, two an SM, as before."""
+    assert _plan(m, kd, n) == want
 
 
 # ---------------------------------------------------------------------------

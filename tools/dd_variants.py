@@ -53,30 +53,8 @@ DD = "limb_matmul_dd.cu"
 DD_BLOCK_START = "  if constexpr (DD) {\n    // One K step in registers"
 DD_BLOCK_END = "  } else {\n    float ra[T::A_PER_THREAD];"
 
-RING_HELPERS = r"""// cp.async from global to shared memory: `src_bytes` of the `bytes` are
-// read, the rest of the destination is zero filled.  16 bytes go as .cg
-// (L2 only), 4 bytes as .ca; the source must be aligned to `bytes`.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's commit groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-"""
-
+#: the ring's load path for the DD instantiations, through the cp.async
+#: helpers that csrc/rmpm_gemm.cuh ships for its weight-streaming body
 RING_BLOCK = r"""  if constexpr (DD) {
     // the cp.async ring: RING_STAGES x (A tile TM x TK, B tile TK x TN), f32
     extern __shared__ __align__(16) float ring[];
@@ -199,7 +177,6 @@ PATCHES: dict[str, list[tuple[str, str, str]]] = {
             "  static constexpr int RING_STAGES = (TK == 64) ? 3 : 4;\n"
             "  static constexpr int STAGE_FLOATS = TM * TK + TK * TN;\n"
             "  static constexpr int RING_BYTES = RING_STAGES * STAGE_FLOATS * 4;\n};\n")),
-        (GEMM, "// Knuth's TwoSum", RING_HELPERS + "// Knuth's TwoSum"),
         (GEMM, DD_BLOCK_START, RING_BLOCK),
         (DD, '#include "rmpm_gemm.cuh"\n', '#include <atomic>\n\n#include "rmpm_gemm.cuh"\n'),
         (DD, "template <int KMAX>\nint launch(", ALLOW_RING + "template <int KMAX>\nint launch("),
