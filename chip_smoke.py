@@ -30,7 +30,12 @@ width cut to 8 layers, plain, modal, speculative and paged
 (``serve_moe``), the dense configs qwen1.5-4b and phi3-mini at full depth
 and command-r+ at one layer (``serve_configs``), and Whisper (enc-dec) and
 InternVL2 (VLM) through the model's own entry points (``multimodal``),
-checking what comes out.  The limb and mode-map kernels are also held and
+checking what comes out, and last trains ``qwen1.5-0.5b`` at full width and
+depth through ``repro_torch.train`` (``train``: native f32, M24 through the
+plain limb algebra, the grad-drift precision schedule, gradient
+accumulation, a checkpoint restored on the card; a train step through the
+kernels must raise, as the reference's ``jax.grad`` through a Pallas kernel
+does, and no kernel launches while training).  The limb and mode-map kernels are also held and
 timed at those models' GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
@@ -43,8 +48,8 @@ prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
-``tune``, ``serve_spec``, ``serve_paged`` and ``serve_tenants`` phases
-always run at full depth, and ``serve_ssm``, ``serve_hybrid``,
+``tune``, ``serve_spec``, ``serve_paged``, ``serve_tenants`` and ``train``
+phases always run at full depth, and ``serve_ssm``, ``serve_hybrid``,
 ``serve_moe``, ``serve_configs`` and ``multimodal`` at the depths their
 docstrings give).
 """
@@ -58,7 +63,9 @@ import gc
 import json
 import math
 import os
+import itertools
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,10 +78,21 @@ import torch
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
 
-from repro_torch.adapt import SLO, PageTierPolicy, bind_modes  # noqa: E402
+from repro_torch import tree  # noqa: E402
+from repro_torch.adapt import (  # noqa: E402
+    SLO,
+    DeviceModes,
+    ModeTable,
+    PageTierPolicy,
+    TrainPrecisionSchedule,
+    bind_modes,
+)
 from repro_torch.adapt.workload import conditioned_model  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
+from repro_torch.core.policy import PRESETS  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
@@ -103,10 +121,12 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
     tile_matmul_runtime,
 )
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
+from repro_torch.launch.train import mode_timeline, put_batch_on  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: E402
 from repro_torch.models.moe import capacity_for  # noqa: E402
 from repro_torch.obs import TraceConfig, span_violations, validate_chrome  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.plan import F32_FLOPS, HBM_BW, PEAK_FLOPS  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdaptConfig,
@@ -123,6 +143,14 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve.graphs import eager  # noqa: E402
 from repro_torch.serve.paged import batch_leaves, tier_node  # noqa: E402
 from repro_torch.spec import SpecConfig  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    TrainConfig,
+    make_grad_fn,
+    make_loss_fn,
+    make_modal_step,
+    make_train_step,
+)
 from repro_torch.tune import TuneTable, tune  # noqa: E402
 
 ARCH = "qwen1.5-0.5b"
@@ -157,7 +185,7 @@ DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + 
 PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
           "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
-          "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal")
+          "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal", "train")
 #: the recurrent families' models (full width; see their phases for depth)
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-9b"
@@ -210,6 +238,20 @@ CONFIG_DEPTHS = {"qwen1.5-4b": None, "phi3-mini-3.8b": None, "command-r-plus-104
 HYBRID_CUT_LAYERS = 8
 HYBRID_WRAP_LAYERS = 3
 HYBRID_WRAP_PREFIX = 2032
+#: the train phase: the reference launcher's defaults (``repro.launch.train``)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 1e-3
+#: accum_steps=2 against 1 on one batch (train arm d): the gradients within
+#: ACCUM_GRAD_TOL of each leaf's largest magnitude (f32 sums in other
+#: orders); the two steps' updates within ACCUM_UPDATE_TOL of the update's
+#: norm (AdamW's first step is g / (|g| + eps): an element whose gradient is
+#: near eps, where the last bits of the sums are, may move by a large share
+#: of the learning rate, so no element-wise bound holds); the loss after the
+#: step and the grad norms within ACCUM_LOSS_TOL, relative
+ACCUM_GRAD_TOL = 2.0**-14
+ACCUM_UPDATE_TOL = 2.0**-8
+ACCUM_LOSS_TOL = 1e-5
+#: where the train phase writes its checkpoint (git-ignored; removed after)
+TRAIN_CKPT_DIR = os.path.join(_ROOT, "build", "train_ckpt")
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -2741,7 +2783,8 @@ def phase_multimodal(params_cache):
         launches = build.launch_counts()
         seq = torch.cat([prompt, toks[:, :-1]], 1)
         batch = {"tokens": seq, **extra}
-        full, aux = model.apply(params, batch)
+        with torch.no_grad():
+            full, aux = model.apply(params, batch)
         check(bool(torch.isfinite(step_logits).all()) and bool(torch.isfinite(full).all()),
               f"multimodal {arch}: non-finite logits")
         check(tuple(full.shape) == (1, seq.shape[1], c.vocab), f"multimodal {arch}: logits shape")
@@ -2763,6 +2806,294 @@ def phase_multimodal(params_cache):
     emit("multimodal", policy=policy.describe(), build_count=build.BUILD_COUNT,
          launches=counts, models=out)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def train_config(steps: int, accum: int = 1) -> TrainConfig:
+    """The reference launcher's TrainConfig for ``--steps steps --accum
+    accum`` at its default learning rate."""
+    return TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, steps // 5),
+                                    total_steps=steps),
+        accum_steps=accum)
+
+
+def train_bound_ms(cfg, params, products: int) -> dict:
+    """Least time of one step on the data-sheet card: the forward GEMMs (the
+    layers' weights, attention's two products over the whole sequence, the
+    logits) and twice that for the backward, ``products`` f32 products per
+    site (1 native, 6 at M24), over the f32 rate outside the tensor cores;
+    plus AdamW's bytes (each parameter, gradient and moment read once, each
+    parameter and moment written once) over the memory rate."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d, hd = cfg.d_model, cfg.head_dim
+    weights = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    attn = 4 * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ * TRAIN_SEQ * hd
+    fwd = cfg.n_layers * (2 * tokens * weights + attn) + 2 * tokens * d * cfg.vocab
+    n = sum(x.numel() for x in tree.leaves(params))
+    ops_ms = 3 * products * fwd / F32_FLOPS * 1e3
+    bytes_ms = 7 * 4 * n / HBM_BW * 1e3
+    return {"bound_ms": ops_ms + bytes_ms, "gemm_ops_ms": ops_ms, "adamw_bytes_ms": bytes_ms,
+            "step_tflop": 3 * products * fwd / 1e12}
+
+
+def step_parts_ms(model, tcfg, params, batch, modes=None) -> dict:
+    """Device ms of one step's forward (the loss), backward (autograd) and
+    AdamW update, by CUDA events recorded between them; ``modes`` (host
+    ints) are bound as device scalars, as the modal step binds them."""
+    loss_fn = make_loss_fn(model, tcfg)
+    opt = adamw.init_state(params, tcfg.optimizer)
+    live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    binding = contextlib.nullcontext()
+    if modes is not None:
+        view = DeviceModes(tuple(modes), tree.leaves(params)[0].device)
+        view.write(modes)
+        binding = bind_modes(view.scalars)
+    torch.cuda.synchronize()
+    with binding, torch.enable_grad():
+        ev[0].record()
+        total, _ = loss_fn(tree.unflatten(params, live), batch)
+        ev[1].record()
+        grads = torch.autograd.grad(total, live)
+        ev[2].record()
+    adamw.apply_updates(params, tree.unflatten(params, list(grads)), opt, tcfg.optimizer)
+    ev[3].record()
+    ev[3].synchronize()
+    return {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
+            "adamw_ms": ev[2].elapsed_time(ev[3])}
+
+
+def profiled_step(step_fn, params, tcfg, batch) -> dict:
+    """One step from a fresh state under ``torch.profiler``: the share of
+    its wall time the card was busy and the kernels with the most device
+    time (``device_busy``)."""
+    state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+    prof = device_busy(lambda: step_fn(state, batch), 1)
+    return {"busy": prof["busy"], "kernel_ms": prof["device_ms"], "top_kernels": prof["top"]}
+
+
+def train_arm(step_fn, state, data, steps: int, adapt=None):
+    """``steps`` steps through ``train_loop`` (batches put on the card);
+    returns (state, history, summary): losses, grad norms, step wall ms
+    (``train_loop``'s dt ends in a synchronize) with their median after the
+    first step, tokens/s at that median and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = train_loop(step_fn, state, data, LoopConfig(total_steps=steps, log_every=1 << 30),
+                             put_batch=put_batch_on("cuda"), adapt=adapt)
+    step_ms = [h["dt"] * 1e3 for h in hist]
+    median = statistics.median(step_ms[1:])
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    check(all(math.isfinite(x) for x in losses), "train: a non-finite loss")
+    check(all(math.isfinite(g) and g > 0 for g in gnorms), f"train: grad norms {gnorms}")
+    return state, hist, {
+        "steps": steps, "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+        "step_ms_median_after_first": median,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+        "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def leaf_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want|, the worst leaf."""
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(tree.leaves(got), tree.leaves(want)))
+
+
+def phase_train(params_cache, card: str) -> dict:
+    """The port's trainer on ``qwen1.5-0.5b`` at full width and depth (24
+    layers, 1024, vocab 151936; ``model.init(0)``), at the reference
+    launcher's defaults (batch 8, seq 128, lr 1e-3, ``SyntheticLM(seed=0)``),
+    through ``train_loop`` and the train step a user calls:
+    (a) ``native_f32``, 6 steps on one batch: the loss falls, grad norms
+        finite and > 0;
+    (b) ``paper_baseline`` (M24, the plain limb algebra under autograd), 3
+        steps on that batch, the same checks;
+    (c) the ``--adapt`` modal step from ``paper_baseline`` under a
+        TrainPrecisionSchedule (SLO 0.5), 8 steps of the SyntheticLM stream:
+        the mode timeline, nothing built;
+    (d) ``accum_steps=2`` against 1 on the 8-row batch from the same state:
+        gradients within ACCUM_GRAD_TOL of each leaf's scale, the updates
+        within ACCUM_UPDATE_TOL of their norm, the loss after the step and
+        the grad norms within ACCUM_LOSS_TOL;
+    (e) checkpoint the state after (a), restore it onto the card: every
+        leaf equal, and the next step's loss bit for bit the original's;
+    (f) a train step under an M16 ``pallas`` policy raises
+        NotImplementedError (the kernels have no backward pass, as the
+        reference's have none) and only that; the same policy serves a
+        forward under ``no_grad`` through the limb kernel;
+    (g) no kernel launched across (a)-(e): the reference trains through
+        the plain limb algebra too.
+    Per arm: step wall ms, tokens/s, peak memory, and one step's forward,
+    backward and AdamW device ms by CUDA events, beside the step's bound."""
+    release()
+    builds = build.BUILD_COUNT
+    native = full_width_model(PRESETS["native_f32"])
+    params = params_cache(native)
+    cfg = native.cfg
+    baseline = native.with_policy(PRESETS["paper_baseline"])
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    fixed = data.next_batch()
+    batch = put_batch_on("cuda")(fixed)
+    arms: dict = {}
+    build.reset_launch_counts()
+
+    # (a) native f32, 6 steps on one batch
+    tcfg = train_config(6)
+    step_a = make_train_step(native, tcfg)
+    state_a, _, arms["a_native_f32"] = train_arm(
+        step_a, {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)},
+        itertools.repeat(fixed), 6)
+    losses = arms["a_native_f32"]["losses"]
+    check(losses[-1] < losses[0], f"train (a): the loss did not fall: {losses}")
+    arms["a_native_f32"].update(step_parts_ms(native, tcfg, params, batch),
+                                **train_bound_ms(cfg, params, 1),
+                                **profiled_step(step_a, params, tcfg, batch))
+
+    # (b) paper_baseline (M24 through the limb algebra), 3 steps
+    tcfg = train_config(3)
+    step_b = make_train_step(baseline, tcfg)
+    state, _, arms["b_paper_baseline"] = train_arm(
+        step_b,
+        {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)},
+        itertools.repeat(fixed), 3)
+    del state
+    losses = arms["b_paper_baseline"]["losses"]
+    check(losses[-1] < losses[0], f"train (b): the loss did not fall: {losses}")
+    arms["b_paper_baseline"].update(step_parts_ms(baseline, tcfg, params, batch),
+                                    **train_bound_ms(cfg, params, 6),
+                                    **profiled_step(step_b, params, tcfg, batch))
+    release()
+
+    # (c) the modal step under the grad-drift precision schedule
+    tcfg = train_config(8)
+    schedule = TrainPrecisionSchedule(ModeTable.from_policy(baseline.cfg.policy),
+                                      SLO(max_err=0.5))
+    start = schedule.table.describe()
+    state, hist, arms["c_modal"] = train_arm(
+        make_modal_step(make_train_step(baseline, tcfg)),
+        {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)},
+        SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0), 8,
+        adapt=schedule)
+    del state
+    timeline = mode_timeline(hist)
+    check(build.BUILD_COUNT == builds, "train (c): a shift built something")
+    check(schedule.table.switches >= 1, "train (c): the schedule never shifted")
+    arms["c_modal"].update(
+        start=start, timeline=timeline, switches=schedule.table.switches,
+        modes=[h["mode"] for h in hist], shifts=[h["mode_shift"] for h in hist],
+        **step_parts_ms(baseline, tcfg, params, batch, modes=schedule.mode_scalars()),
+        **train_bound_ms(cfg, params, 6))
+    release()
+
+    # (d) accum_steps=2 against 1, one step from the same state
+    c1, c2 = train_config(6), train_config(6, accum=2)  # lr 1e-3 at step 1, as in (a)
+    g1, _ = make_grad_fn(native, c1)(params, batch)
+    g2, _ = make_grad_fn(native, c2)(params, batch)
+    grad_gap = leaf_gap(g2, g1)
+    del g1, g2
+    torch.cuda.reset_peak_memory_stats()
+    outs = {}
+    for name, c in (("accum1", c1), ("accum2", c2)):
+        state0 = {"params": params, "opt": adamw.init_state(params, c.optimizer)}
+        t0 = time.perf_counter()
+        new, m = make_train_step(native, c)(state0, batch)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            after, _ = make_loss_fn(native, c)(new["params"], batch)
+        outs[name] = dict(state=new, metrics=m, after=float(after),
+                          step_ms=(time.perf_counter() - t0) * 1e3)
+    old = tree.leaves(params)
+    new1 = tree.leaves(outs["accum1"]["state"]["params"])
+    new2 = tree.leaves(outs["accum2"]["state"]["params"])
+    diff2 = sum(float(((b - a) ** 2).sum()) for a, b in zip(new1, new2))
+    step2 = sum(float(((a - p) ** 2).sum()) for a, p in zip(new1, old))
+    update_gap = math.sqrt(diff2 / step2)
+    param_gap = max(float((a - b).abs().max()) for a, b in zip(new1, new2))
+    after1, after2 = outs["accum1"]["after"], outs["accum2"]["after"]
+    gn1 = float(outs["accum1"]["metrics"]["grad_norm"])
+    gn2 = float(outs["accum2"]["metrics"]["grad_norm"])
+    arms["d_accum"] = dict(
+        grad_gap_over_scale=grad_gap, grad_tol=ACCUM_GRAD_TOL,
+        update_gap_over_norm=update_gap, update_tol=ACCUM_UPDATE_TOL,
+        param_gap_over_lr=param_gap / TRAIN_LR, loss_after=[after1, after2],
+        loss_tol=ACCUM_LOSS_TOL, grad_norm=[gn1, gn2],
+        step_ms=[outs["accum1"]["step_ms"], outs["accum2"]["step_ms"]],
+        peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    what = f"train (d): {arms['d_accum']}"
+    check(grad_gap <= ACCUM_GRAD_TOL, what)
+    check(update_gap <= ACCUM_UPDATE_TOL, what)
+    check(abs(after2 - after1) <= ACCUM_LOSS_TOL * abs(after1), what)
+    check(abs(gn2 - gn1) <= ACCUM_LOSS_TOL * gn1, what)
+    del outs
+    release()
+
+    # (e) checkpoint the state after (a), restore it on the card
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(TRAIN_CKPT_DIR, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(6, state_a)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, restored = mgr.restore(device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves_a, leaves_r = tree.leaves(state_a), tree.leaves(restored)
+    check(step == 6 and len(leaves_a) == len(leaves_r), "train (e): the restored tree differs")
+    check(all(a.dtype == r.dtype and r.device == a.device and torch.equal(a, r)
+              for a, r in zip(leaves_a, leaves_r)), "train (e): a restored leaf differs")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    next_a, ma = step_a(state_a, batch)
+    next_r, mr = step_a(restored, batch)
+    torch.cuda.synchronize()
+    two_steps_ms = (time.perf_counter() - t0) * 1e3
+    check(float(ma["loss"]) == float(mr["loss"]),
+          f"train (e): next loss {float(ma['loss'])!r} against {float(mr['loss'])!r}")
+    same_params = sum(torch.equal(a, b) for a, b in zip(tree.leaves(next_a["params"]),
+                                                          tree.leaves(next_r["params"])))
+    with open(os.path.join(TRAIN_CKPT_DIR, "step_00000006", "manifest.json")) as fh:
+        manifest = json.load(fh)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    arms["e_checkpoint"] = dict(
+        save_s=save_s, restore_s=restore_s, bytes=manifest["bytes"], arrays=manifest["n_arrays"],
+        next_loss=[float(ma["loss"]), float(mr["loss"])], next_loss_bitwise_equal=True,
+        next_params_bitwise_equal_leaves=f"{same_params}/{len(tree.leaves(next_a['params']))}",
+        two_steps_ms=two_steps_ms, peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state_a, restored, next_a, next_r
+    launches = build.launch_counts()
+    check(sum(launches.values()) == 0, f"train: kernels launched in (a)-(e): {launches}")
+    release()
+
+    # (f) a kernel policy under autograd raises, and only that
+    kernel_model = native.with_policy(PrecisionPolicy(default=Mode.M16, impl="pallas"))
+    tcfg = train_config(6)
+    refused = None
+    try:
+        make_train_step(kernel_model, tcfg)(
+            {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}, batch)
+    except NotImplementedError as exc:
+        refused = str(exc)
+    check(refused is not None, "train (f): a train step through the kernels did not raise")
+    refused_launches = build.launch_counts()
+    with torch.no_grad():
+        logits, _ = kernel_model.apply(params, {"tokens": batch["tokens"][:1]})
+    served = build.launch_counts()
+    check(bool(torch.isfinite(logits).all()) and served["limb_matmul"] > 0,
+          "train (f): the kernel policy did not serve a forward under no_grad")
+    del logits
+    release()
+    emit("train", card=card, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params_m=sum(x.numel() for x in tree.leaves(params)) / 1e6,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, arms=arms,
+         launches_a_to_e=launches, refused=refused, launches_at_refusal=refused_launches,
+         launches_serving_forward=served, build_count=build.BUILD_COUNT)
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -2886,6 +3217,8 @@ def main() -> int:
             for kname, c in fn(params_cache).items():
                 if kname in main_counts:
                     main_counts[kname] += c
+    if "train" in phases:
+        phase_train(params_cache, card)
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

@@ -9,8 +9,9 @@ run time" — as a feedback loop over the RMPM engine:
                        scalars for captured steps: nothing is built when
                        they change, and the kernels read them as data)
     probe.py           online error probes (shadow-forward logit residual,
-                       sampled-row matmul residual)
-    controller.py      SLO + dual-threshold hysteresis controller
+                       sampled-row matmul residual, grad-norm drift)
+    controller.py      SLO + dual-threshold hysteresis controller, and the
+                       training loop's precision schedule
     pages.py           precision tiers of paged KV memory: the keep-bits
                        ladder policy and its controller
     workload.py        the synthetic ill-conditioned serving workload that
@@ -18,12 +19,18 @@ run time" — as a feedback loop over the RMPM engine:
                        ``repro_torch.adapt.workload``: it builds a model)
 
 ``ServeEngine(config=ServeConfig(adapt=AdaptConfig(slo=...)))`` closes the
-loop; ``CacheConfig(tier_policy=PageTierPolicy(...))`` tiers cold KV pages.
-The training schedule of the reference is not ported yet.
+loop; ``CacheConfig(tier_policy=PageTierPolicy(...))`` tiers cold KV pages;
+``train_loop(adapt=TrainPrecisionSchedule(...))`` shifts a training run's
+modes on grad-norm drift.
 """
-from repro_torch.adapt.controller import SLO, HysteresisController  # noqa: F401
+from repro_torch.adapt.controller import (  # noqa: F401
+    SLO,
+    HysteresisController,
+    TrainPrecisionSchedule,
+)
 from repro_torch.adapt.pages import HOT, PageTierController, PageTierPolicy  # noqa: F401
 from repro_torch.adapt.probe import (  # noqa: F401
+    GradDriftProbe,
     logit_residual,
     sampled_matmul_residual,
     softmax_tv,

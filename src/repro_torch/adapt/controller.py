@@ -22,14 +22,16 @@ Decision rule (DESIGN.md section Runtime adaptation, invariants i-iv):
 
 The controller is engine-agnostic: ``observe`` takes scalars, returns a
 shift in {-1, 0, +1}; the caller applies it to its
-:class:`~repro_torch.adapt.runtime_policy.ModeTable`.  The training-loop
-precision schedule of the reference waits for the training slice.
+:class:`~repro_torch.adapt.runtime_policy.ModeTable`.
+:class:`TrainPrecisionSchedule` drives one from the training loop.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+from repro_torch.adapt.probe import GradDriftProbe
+from repro_torch.adapt.runtime_policy import ModeTable
 from repro_torch.obs import NULL_TRACER
 
 
@@ -138,4 +140,48 @@ class HysteresisController:
             self._since_shift = 0
         else:
             self._since_shift += 1
+        return decision
+
+
+class TrainPrecisionSchedule:
+    """Grad-norm-drift-driven precision schedule for the training loop.
+
+    Wraps a :class:`ModeTable` + :class:`HysteresisController` +
+    :class:`GradDriftProbe` behind the two calls ``train_loop`` makes:
+    ``mode_scalars()`` (the modes argument of the modal train step) and
+    ``observe(step, metrics, dt)``.  Natural dynamics: warmup drift holds
+    precision up, a stabilized grad norm lets the schedule relax down the
+    ladder, and a drift spike (loss-scale trouble, data shift) shifts it
+    back up within ``cooldown`` observations.
+    """
+
+    def __init__(self, table: ModeTable, slo: SLO, *,
+                 controller: HysteresisController | None = None,
+                 probe: GradDriftProbe | None = None, every: int = 1):
+        self.table = table
+        self.controller = controller or HysteresisController(slo)
+        self.probe = probe or GradDriftProbe()
+        self.every = max(int(every), 1)
+
+    def mode_scalars(self) -> dict:
+        return self.table.scalars()
+
+    def observe(self, step: int, metrics: dict, dt_s: float | None = None) -> int:
+        """Feed one step's metrics; returns the applied shift (0 off-probe).
+
+        The drift probe updates every step (EWMA continuity); the controller
+        only acts every ``self.every`` steps.
+        """
+        drift = self.probe.update(float(metrics["grad_norm"]))
+        if step % self.every:
+            return 0
+        decision = self.controller.observe(
+            step, err=drift, err_down=drift,
+            step_ms=None if dt_s is None else dt_s * 1e3,
+            # ladder headroom: a clamped table must not consume the cooldown
+            # with phantom decisions (that would delay a genuine up-shift)
+            can_up=not self.table.at_max, can_down=not self.table.at_min,
+        )
+        if decision:
+            self.table.shift_all(decision, tag=step)
         return decision

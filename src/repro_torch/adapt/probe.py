@@ -4,7 +4,7 @@ The controller needs a live estimate of the numerical error the *current*
 mode table inflicts.  Truth is unavailable online, so the probes compare
 against the most precise runtime-switchable configuration — the mode table
 shifted to its max (M24), run through the SAME decode step with different
-modes bound (nothing is built).  Two signals, cheapest first:
+modes bound (nothing is built).  Three signals, cheapest first:
 
   * :func:`logit_residual` — normalized max-abs logit deviation between a
     low-mode and reference forward, masked to active slots.  Scale-
@@ -13,12 +13,16 @@ modes bound (nothing is built).  Two signals, cheapest first:
     available when the caller cares about sampling fidelity.
   * :func:`sampled_matmul_residual` — re-multiplies a row sample of one GEMM
     at ``mode`` and ``mode+1`` and reports the relative gap.
+  * :class:`GradDriftProbe` — EWMA drift of the gradient norm, the training
+    loop's error surrogate (loss-scale blowups and underflow both announce
+    themselves as grad-norm drift long before the loss diverges).
 
 Probe cost is budgeted by the caller (``AdaptConfig(adapt_every=N)`` probes
-every N decode steps: three shadow forwards per probe).  The grad-norm drift
-probe of the reference waits for the training slice.
+every N decode steps: three shadow forwards per probe).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -86,3 +90,26 @@ def sampled_matmul_residual(
     lo = mp_matmul(xs, w, mode, rounding=rounding, device=x.device)
     hi = mp_matmul(xs, w, up, rounding=rounding, device=x.device)
     return (lo - hi).abs().max() / (hi.abs().max() + _EPS)
+
+
+@dataclasses.dataclass
+class GradDriftProbe:
+    """EWMA drift of the gradient norm: ``drift = |gn - ewma| / ewma``.
+
+    Warmup steps (the first ``warmup`` observations) return 0 — the first
+    steps' transients must not trigger mode shifts.
+    """
+
+    alpha: float = 0.1
+    warmup: int = 3
+    ewma: float = 0.0
+    n: int = 0
+
+    def update(self, grad_norm: float) -> float:
+        self.n += 1
+        if self.n <= self.warmup:
+            self.ewma = grad_norm
+            return 0.0
+        drift = abs(grad_norm - self.ewma) / (self.ewma + _EPS)
+        self.ewma += self.alpha * (grad_norm - self.ewma)
+        return drift

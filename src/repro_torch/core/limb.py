@@ -69,6 +69,49 @@ def split_limbs_f32(x, k: int, rounding: str = "rne") -> list[torch.Tensor]:
     return limbs
 
 
+def _split_limbs_bf16(x, k: int, rounding: str = "rne") -> list[torch.Tensor]:
+    """The k bf16 limbs of ``x`` made as the reference makes them
+    (``li = bf16(r); r = r - f32(li)``), for a graph that autograd walks."""
+    if isinstance(x, DoubleF32):
+        hi, lo = x.hi.to(torch.float32), x.lo.to(torch.float32)
+    else:
+        hi, lo = x.to(torch.float32), None
+    limbs = []
+    r = hi
+    for i in range(k):
+        if lo is not None and i == 3:
+            r = r + lo
+            lo = None
+        li = _to_bf16(r, rounding)
+        limbs.append(li)
+        if i + 1 < k:
+            r = r - li.to(torch.float32)
+    return limbs
+
+
+def _differentiated(x) -> bool:
+    parts = (x.hi, x.lo) if isinstance(x, DoubleF32) else (x,)
+    return torch.is_grad_enabled() and any(
+        isinstance(p, torch.Tensor) and p.requires_grad for p in parts)
+
+
+def limb_operands(x, k: int, rounding: str = "rne"):
+    """``x``'s k limbs as the limb products' f32 operands: ``limb(i)``
+    gives limb ``i`` for one product.
+
+    Without autograd these are ``split_limbs_f32``'s limbs, shared by every
+    product.  Under autograd (grad enabled and ``x`` requires grad) the bf16
+    limbs are the graph's nodes and each product gets its own f32 cast, so
+    each product's cotangent is rounded to bf16 at its cast and a limb's
+    cotangents are summed in bf16: the casts of the reference, whose
+    products take bf16 limbs and whose gradients (``jax.grad`` of the limb
+    algebra) are the oracle.  The forward values are the same either way."""
+    if _differentiated(x):
+        limbs = _split_limbs_bf16(x, k, rounding)
+        return lambda i: limbs[i].to(torch.float32)
+    return split_limbs_f32(x, k, rounding).__getitem__
+
+
 def reconstruct(limbs: torch.Tensor) -> torch.Tensor:
     """Sum limbs back to f32 (low-order first for accuracy)."""
     acc = torch.zeros(limbs.shape[1:], dtype=torch.float32, device=limbs.device)

@@ -59,6 +59,10 @@ def _place(x, device):
     return torch.as_tensor(x).to(device)
 
 
+def _device_of(x) -> torch.device:
+    return (x.hi if isinstance(x, DoubleF32) else x).device
+
+
 def _two_sum(a: Tensor, b: Tensor) -> tuple[Tensor, Tensor]:
     """Knuth TwoSum: s + e == a + b exactly (s = fl(a+b))."""
     s = a + b
@@ -97,18 +101,20 @@ def _limb_einsum(
     f32 product — TF32 must be off on the GPU, and is checked to be.  The
     limbs are made in f32 one at a time (``split_limbs_f32``) and terms are
     computed one at a time, so that a large operand (the logits weight)
-    never holds more than its f32 limbs and one product."""
+    never holds more than its f32 limbs and one product.  Under autograd
+    the limbs are cast per product instead (``limb_operands``), so the
+    gradient rounds where the reference's does."""
     if compensated is None:
         compensated = k >= 4
-    a_f = limb_lib.split_limbs_f32(a, k, rounding)
-    b_f = limb_lib.split_limbs_f32(b, k, rounding)
-    require_full_f32_matmul(a_f[0].device)
+    a_f = limb_lib.limb_operands(a, k, rounding)
+    b_f = limb_lib.limb_operands(b, k, rounding)
+    require_full_f32_matmul(_device_of(a))
     terms = limb_lib.limb_product_terms(k)
     if compensated:
-        return _neumaier_sum([torch.einsum(eq, a_f[i], b_f[j]) for i, j in terms])
+        return _neumaier_sum([torch.einsum(eq, a_f(i), b_f(j)) for i, j in terms])
     acc = None
     for i, j in terms:
-        p = torch.einsum(eq, a_f[i], b_f[j])
+        p = torch.einsum(eq, a_f(i), b_f(j))
         acc = p if acc is None else acc + p
     return acc
 
@@ -123,10 +129,10 @@ def _limb_einsum_ladder(eq: str, a, b, rounding: str = "rne") -> list[Tensor]:
     ordered smallest first (``limb_product_terms``), so k = 3's order does
     not extend k = 2's and each mode folds its own terms in its own order."""
     kmax = MODE_LIMBS[F32_MODES[-1]]
-    a_f = limb_lib.split_limbs_f32(a, kmax, rounding)
-    b_f = limb_lib.split_limbs_f32(b, kmax, rounding)
-    require_full_f32_matmul(a_f[0].device)
-    products = {(i, j): torch.einsum(eq, a_f[i], b_f[j])
+    a_f = limb_lib.limb_operands(a, kmax, rounding)
+    b_f = limb_lib.limb_operands(b, kmax, rounding)
+    require_full_f32_matmul(_device_of(a))
+    products = {(i, j): torch.einsum(eq, a_f(i), b_f(j))
                 for i, j in limb_lib.limb_product_terms(kmax)}
     out = []
     for mode in F32_MODES:

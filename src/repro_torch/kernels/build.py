@@ -159,6 +159,25 @@ def prepare_device(lib: ctypes.CDLL) -> None:
     _PREPARED.add(index)
 
 
+def refuse_autograd(what: str, *operands) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and an operand
+    requires grad.  The kernels have no backward pass, and neither have the
+    TPU kernels they replace: the reference's ``jax.grad`` through
+    ``pallas_call`` raises.  A kernel writes into a tensor its wrapper
+    allocates, so on the card its result would carry no ``grad_fn`` and the
+    weights behind it would silently get no gradient.  Every wrapper calls
+    this first, on the CPU (plain version) as on the card, so the two
+    cannot differ."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in operands):
+        raise NotImplementedError(
+            f"{what} has no backward pass (the reference's Pallas kernels have "
+            "none: jax.grad through pallas_call raises NotImplementedError); "
+            "train with impl='xla' or impl='native'")
+
+
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise when a launch was refused (``cudaGetLastError`` != 0)."""
     if code != 0:

@@ -293,7 +293,9 @@ def limb_matmul(
     through kernels/quantize_mantissa first.  Leading dims of ``a`` are
     flattened; bf16 inputs are accepted.  ``splits`` overrides the K split
     count (``None``: ``split_k`` on the card, 1 on the CPU); it exists for
-    timing the layouts side by side."""
+    timing the layouts side by side.  Raises under autograd
+    (``build.refuse_autograd``)."""
+    build.refuse_autograd("limb_matmul", a, b)
     if rounding != "rne":
         from repro_torch.kernels.quantize_mantissa.ops import quantize_mantissa_op
 
@@ -417,7 +419,9 @@ def limb_matmul_dd(
     double-f32 pair (M32 = 4 limbs, M48 = 6), through the fused kernel for
     CUDA tensors.  Ragged shapes need no padding.  ``splits`` overrides the
     K split count (``None``: ``split_k`` on the card, 1 on the CPU); it
-    exists for timing the layouts side by side."""
+    exists for timing the layouts side by side.  Raises under autograd
+    (``build.refuse_autograd``)."""
+    build.refuse_autograd("limb_matmul_dd", a, b)
     a2 = a.to(torch.float32)
     b2 = b.to(torch.float32)
     if a2.dim() != 2 or b2.dim() != 2:

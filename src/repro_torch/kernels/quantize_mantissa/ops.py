@@ -42,7 +42,9 @@ def quantize_mantissa_op(x: torch.Tensor, keep: int, rounding: str = "grte") -> 
     """Quantize the mantissa of an arbitrary-shape f32 tensor to ``keep``
     explicit bits with the selected rounding (trunc | rne | grte).
     ``keep`` must be >= 1 (values below would reach into the exponent/sign
-    fields); ``keep >= 23`` is the identity."""
+    fields); ``keep >= 23`` is the identity.  Raises under autograd
+    (``build.refuse_autograd``)."""
+    build.refuse_autograd("quantize_mantissa", x)
     if keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
     if rounding not in _ROUNDINGS:

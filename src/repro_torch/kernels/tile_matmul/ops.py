@@ -114,8 +114,10 @@ def tile_matmul(
 
     ``mode_map`` entries are f32-ladder Mode values (== limb counts, in
     [1, kmax]); its shape must match ``tile_grid`` for the flattened
-    problem.  The map is data: a new map reuses the built kernel.
+    problem.  The map is data: a new map reuses the built kernel.  Raises
+    under autograd (``build.refuse_autograd``).
     """
+    build.refuse_autograd("tile_matmul", a, b)
     if rounding != "rne":
         from repro_torch.kernels.quantize_mantissa.ops import quantize_mantissa_op
 

@@ -6,7 +6,9 @@ and ``vlm`` (InternVL2: patch embeddings prepended to the text).
 
 Functional style like the reference: ``init(seed) -> params`` (a nested dict
 of tensors), ``apply(params, batch)`` for the full-sequence forward,
-``decode_step`` for serving (a multi-token call is the prefill).  Where the
+``decode_step`` for serving (a multi-token call is the prefill; it and
+``prefill_encoder`` run under ``no_grad``, ``apply`` follows the caller's
+grad mode).  Where the
 reference scans a stacked layer axis, this is a Python loop over the layers:
 parameters keep the stacked layout — ``params["layers"]["seg0_dense"]``
 (``"seg0_ssm"``, ``"seg0_moe"``, ``"seg0_dec"``; Kimi-K2's leading dense
@@ -329,13 +331,17 @@ class LanguageModel:
 
     # -- full-sequence forward ------------------------------------------------
 
-    @torch.no_grad()
     def apply(self, params: Params, batch: dict[str, Tensor]) -> tuple[Tensor, Tensor]:
         """Returns (logits, aux_loss): the MoE layers' summed load-balance
         loss (0 for the other families).  ``batch``: ``tokens``, and
         ``frames`` (enc-dec: the encoder's input embeddings) or
         ``pixel_embeds`` (VLM: patch embeddings prepended to the text, whose
-        rows are dropped from the logits)."""
+        rows are dropped from the logits).  Follows the caller's grad mode:
+        the training step differentiates it through parameters that require
+        grad (``train.step``); parameters from ``init`` or ``convert`` do
+        not, so other callers build no graph.  A site that reaches a kernel
+        with such parameters raises, as the reference's ``jax.grad`` through
+        a Pallas kernel does."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         x = self._embed(params, tokens)

@@ -1,0 +1,189 @@
+"""Training step: loss, gradient accumulation, optimizer.
+
+The reference's ``repro.train.step`` on PyTorch: gradients are autograd's
+derivatives of the model's forward, as the reference's are ``jax.grad``'s —
+through the plain limb algebra (``impl='xla'``) or one f32 product per site
+(``impl='native'``).  The hand-written kernels have no backward pass (nor
+have the reference's Pallas kernels), so a policy that sends a site to
+``'pallas'`` or ``'tile'`` raises ``NotImplementedError`` at that site
+(``kernels.build.refuse_autograd``), where the reference's ``jax.grad``
+raises too.
+
+Gradient accumulation over ``accum_steps`` microbatches bounds activation
+memory: the reference scans them; here a Python loop sums their gradients
+and divides by ``accum_steps``.  The step is eager: nothing is compiled or
+captured.  ``grad_compression`` (int8 error-feedback over a 'pod' mesh
+axis) does nothing without a mesh, in the reference as here; meshes are
+ROADMAP item A13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch import tree
+from repro_torch.adapt.runtime_policy import DeviceModes, bind_modes
+from repro_torch.distributed.sharding import BATCH_AXES, constrain
+from repro_torch.models.lm import LanguageModel
+from repro_torch.optim import adamw
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: adamw.AdamWConfig = dataclasses.field(default_factory=adamw.AdamWConfig)
+    accum_steps: int = 1
+    aux_loss_weight: float = 0.01
+    z_loss_weight: float = 1e-4
+    grad_compression: bool = False  # int8 EF compression over the pod axis (A13)
+
+
+def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float,
+                  seq_sharded: bool = False) -> Tensor:
+    """Mean next-token CE in f32 with optional z-loss (logit drift control).
+
+    The label log-prob is the reference's masked sum over the vocab axis
+    (one nonzero term, so the same value a gather gives), kept because it
+    is the vocab-parallel form a sharded vocab needs (A13): a gather would
+    collect the whole (B, S, V) logits on every rank.  ``seq_sharded``
+    names the axis ``constrain`` puts on 'model' (sequence instead of
+    vocab)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab_iota = torch.arange(logits.shape[-1], dtype=torch.int32, device=logits.device)
+    vocab_iota = vocab_iota.expand(logits.shape)
+    if seq_sharded:
+        vocab_iota = constrain(vocab_iota, BATCH_AXES, "model", None)
+    else:
+        vocab_iota = constrain(vocab_iota, BATCH_AXES, None, "model")
+    onehot = vocab_iota == labels.to(device=logits.device, dtype=torch.int32)[..., None]
+    ll = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse**2)
+    return loss
+
+
+def make_loss_fn(model: LanguageModel, tcfg: TrainConfig) -> Callable:
+    """``loss_fn(params, batch) -> (total, {"loss", "aux_loss"})``."""
+    seq_sharded = model.cfg.attn_shard == "sequence"
+
+    def loss_fn(params, batch):
+        logits, aux = model.apply(params, batch)
+        loss = cross_entropy(logits, batch["labels"], tcfg.z_loss_weight, seq_sharded)
+        total = loss + tcfg.aux_loss_weight * aux
+        return total, {"loss": loss, "aux_loss": aux}
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``fn(params, batch) -> (metrics, grads)``: the gradient of
+    ``loss_fn``'s first output with respect to every leaf of ``params``
+    (autograd over detached leaves that require grad; the caller's tensors
+    are not changed).  A leaf the loss does not reach (a stacked tree of
+    zero layers: a hybrid cut below one supergroup) gets zeros, as
+    ``jax.grad`` gives.  Metrics are detached."""
+
+    def fn(params, batch):
+        live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        with torch.enable_grad():
+            total, metrics = loss_fn(tree.unflatten(params, live), batch)
+            grads = torch.autograd.grad(total, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
+        return ({k: v.detach() for k, v in metrics.items()},
+                tree.unflatten(params, grads))
+
+    return fn
+
+
+def _split_microbatches(batch: dict, n: int) -> list[dict]:
+    """(B, ...) -> n batches of (B/n, ...), in row order."""
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, not a multiple of "
+                             f"accum_steps={n}")
+    return [{k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def make_grad_fn(model: LanguageModel, tcfg: TrainConfig) -> Callable:
+    """``fn(params, batch) -> (grads, metrics)`` with ``accum_steps``
+    accumulation: the microbatches' gradients summed in order and divided by
+    ``accum_steps``; the metrics are the last microbatch's, as the
+    reference's scan carries them."""
+    grad_fn = value_and_grad(make_loss_fn(model, tcfg))
+
+    def compute_grads(params, batch):
+        if tcfg.accum_steps == 1:
+            metrics, grads = grad_fn(params, batch)
+            return grads, metrics
+        acc = None
+        for mb in _split_microbatches(batch, tcfg.accum_steps):
+            metrics, grads = grad_fn(params, mb)
+            acc = grads if acc is None else tree.map_tree(torch.add, acc, grads)
+            del grads
+        return tree.map_tree(lambda g: g / tcfg.accum_steps, acc), metrics
+
+    return compute_grads
+
+
+def make_train_step(model: LanguageModel, tcfg: TrainConfig, mesh=None) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state = {'params', 'opt', 'residual' (optional EF residuals)}``;
+    ``batch`` holds ``tokens`` and ``labels`` tensors (and ``frames`` /
+    ``pixel_embeds`` for the enc-dec and VLM families).  ``metrics``:
+    ``loss``, ``aux_loss``, ``lr``, ``grad_norm``, f32 scalars on the
+    device.  The new state's tensors are new: ``state`` stays as it was."""
+    if mesh is not None:
+        raise NotImplementedError("training over a mesh is ROADMAP item A13")
+    compute_grads = make_grad_fn(model, tcfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        grads, metrics = compute_grads(params, batch)
+        params, opt, om = adamw.apply_updates(params, grads, state["opt"], tcfg.optimizer)
+        metrics = dict(metrics, **om)
+        new_state = {"params": params, "opt": opt}
+        if state.get("residual") is not None:
+            new_state["residual"] = state["residual"]
+        return new_state, metrics
+
+    return train_step
+
+
+def make_modal_step(train_step: Callable) -> Callable:
+    """The reference launcher's modal wrapper: ``step(state, batch, modes)``
+    runs ``train_step`` under ``bind_modes``, with ``modes`` (a ModeTable's
+    ``scalars()``, host ints) written into int32 device scalars first.  A
+    bound site at ``impl='xla'`` then computes the ladder's limb products
+    once and selects its mode on the device (``core.rmpm._mode_select``,
+    whose ``torch.where`` sends a zero gradient to the modes not chosen, as
+    ``lax.switch``'s gradient does): one code path at every mode, nothing
+    built when the table shifts."""
+    view = None
+
+    def step(state, batch, modes):
+        nonlocal view
+        if view is None:
+            view = DeviceModes(tuple(modes), tree.leaves(state["params"])[0].device)
+        view.write(modes)
+        with bind_modes(view.scalars):
+            return train_step(state, batch)
+
+    return step
+
+
+def init_train_state(model: LanguageModel, seed: Any, tcfg: TrainConfig) -> dict:
+    """Parameters from ``model.init(seed)`` and a fresh optimizer state (and
+    zero EF residuals with ``grad_compression``, as the reference makes)."""
+    params = model.init(seed)
+    state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+    if tcfg.grad_compression:
+        state["residual"] = tree.map_tree(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return state

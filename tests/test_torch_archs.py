@@ -7,8 +7,9 @@ RecurrentGemma pattern, an attention-free Mamba-2, a live precision policy).
 Beside them, each architecture's forward against the reference's on the
 same numpy-made weights.
 
-The reference's ``test_train_step_reduces_loss_shape`` cell waits for the
-port's training step (ROADMAP Queue A item 12); it has no counterpart here.
+The reference's ``test_train_step_reduces_loss_shape`` cell runs on the
+port's training step (``repro_torch.train``) for every architecture; the
+port's gradients against the reference's are in ``test_torch_train``.
 
 Tolerance of the forward against the reference: the policy's ceiling
 (``MODE_REL_ERROR``) times ``FACTOR`` per four layers, plus, for the MoE
@@ -25,7 +26,9 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import NATIVE_F32, PrecisionPolicy
 from repro_torch.core.precision import Mode
 from repro_torch.models import build_model
+from repro_torch.optim import adamw
 from repro_torch.plan import MODE_REL_ERROR
+from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
 
 from test_torch_common import CACHE_QUANTUM, FACTOR, _gap, make_pair
 
@@ -59,6 +62,23 @@ class TestArchSmoke:
         assert bool(torch.isfinite(logits).all())
         assert bool(torch.isfinite(aux))
         assert (float(aux) > 0) == (cfg.family == "moe")
+
+    def test_train_step_reduces_loss_shape(self, arch, rng):
+        cfg = get_smoke_config(arch).with_policy(NATIVE_F32)
+        model = build_model(cfg, device="cpu")
+        tcfg = TrainConfig(
+            optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10),
+            accum_steps=2,
+        )
+        step = make_train_step(model, tcfg)
+        state = init_train_state(model, 1, tcfg)
+        batch = _batch(cfg, rng)
+        batch["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+        state, m1 = step(state, batch)
+        state, m2 = step(state, batch)  # same batch twice: loss must drop
+        assert np.isfinite(float(m1["loss"])) and np.isfinite(float(m2["loss"]))
+        assert float(m2["loss"]) < float(m1["loss"])
+        assert float(m1["grad_norm"]) > 0
 
     def test_full_config_matches_assignment(self, arch):
         cfg = get_config(arch)

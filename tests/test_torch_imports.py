@@ -69,7 +69,9 @@ def test_the_package_has_the_modules_of_the_slice():
                  "configs.phi3_5_moe_42b", "configs.kimi_k2_1t", "configs.whisper_medium",
                  "configs.internvl2_1b", "configs.mamba2_2_7b", "configs.recurrentgemma_9b",
                  "tune", "tune.table", "tune.runner", "tune.__main__",
-                 "spec", "spec.config", "spec.rollout"):
+                 "spec", "spec.config", "spec.rollout",
+                 "tree", "optim.adamw", "train.step", "train.loop", "data.pipeline",
+                 "checkpoint.manager", "distributed.sharding", "launch.train"):
         assert f"repro_torch.{want}" in MODULES, want
 
 
