@@ -35,8 +35,11 @@ depth through ``repro_torch.train`` (``train``: native f32, M24 through the
 plain limb algebra, the grad-drift precision schedule, gradient
 accumulation, a checkpoint restored on the card; a train step through the
 kernels must raise, as the reference's ``jax.grad`` through a Pallas kernel
-does, and no kernel launches while training).  The limb and mode-map kernels are also held and
-timed at those models' GEMM shapes.  The engine runs its
+does, and no kernel launches while training), then trains it over a
+one-rank NCCL ``DeviceMesh`` (``distributed``: the (1, 1) mesh step against
+the unsharded one and its cost, int8 gradient compression over a (1, 1, 1)
+mesh, the S = 1 pipeline, a checkpoint restored onto the mesh).  The limb
+and mode-map kernels are also held and timed at those models' GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
 ``serve_spec`` and ``serve_tenants`` also serve eagerly (``graphs.eager()``)
@@ -48,10 +51,10 @@ prints any result.
 
 ``--phases a,b`` runs a subset (for a first build check); ``--layers N`` cuts
 the depth of the earlier serving phases' model (widths are never cut; the
-``tune``, ``serve_spec``, ``serve_paged``, ``serve_tenants`` and ``train``
-phases always run at full depth, and ``serve_ssm``, ``serve_hybrid``,
-``serve_moe``, ``serve_configs`` and ``multimodal`` at the depths their
-docstrings give).
+``tune``, ``serve_spec``, ``serve_paged``, ``serve_tenants``, ``train`` and
+``distributed`` phases always run at full depth, and ``serve_ssm``,
+``serve_hybrid``, ``serve_moe``, ``serve_configs`` and ``multimodal`` at the
+depths their docstrings give).
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(_ROOT, "src"))
@@ -93,6 +97,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.policy import PRESETS  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.distributed import compress, pipeline  # noqa: E402
+from repro_torch.distributed.sharding import put  # noqa: E402
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
@@ -121,9 +127,15 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
     tile_matmul_runtime,
 )
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
+from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.train import mode_timeline, put_batch_on  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.lm import copy_state_, map_state, state_leaves  # noqa: E402
+from repro_torch.models.lm import (  # noqa: E402
+    _block_apply,
+    copy_state_,
+    map_state,
+    state_leaves,
+)
 from repro_torch.models.moe import capacity_for  # noqa: E402
 from repro_torch.obs import TraceConfig, span_violations, validate_chrome  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -146,10 +158,15 @@ from repro_torch.spec import SpecConfig  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
     TrainConfig,
+    laid_out,
+    like_params,
     make_grad_fn,
     make_loss_fn,
     make_modal_step,
     make_train_step,
+    mesh_scope,
+    state_mesh,
+    state_shardings,
 )
 from repro_torch.tune import TuneTable, tune  # noqa: E402
 
@@ -185,7 +202,8 @@ DD_CASES = ((64, 128, 64, 3), (17, 33, 9, 3), (17, 33, 9, 4), (17, 33, 9, 6)) + 
 PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
           "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
-          "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal", "train")
+          "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal", "train",
+          "distributed")
 #: the recurrent families' models (full width; see their phases for depth)
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-9b"
@@ -252,6 +270,14 @@ ACCUM_UPDATE_TOL = 2.0**-8
 ACCUM_LOSS_TOL = 1e-5
 #: where the train phase writes its checkpoint (git-ignored; removed after)
 TRAIN_CKPT_DIR = os.path.join(_ROOT, "build", "train_ckpt")
+#: the distributed phase: its checkpoint (git-ignored; removed after), the
+#: relative distance a sharded step may keep from the unsharded one when not
+#: bit for bit (GRAD_TOL_NATIVE of tests/test_torch_train.py), the pairs of
+#: (unsharded, sharded) steps timed, and the pipeline's microbatches at S = 1
+DIST_CKPT_DIR = os.path.join(_ROOT, "build", "dist_ckpt")
+DIST_TOL = 2.0**-14
+DIST_TIMED_PAIRS = 3
+PIPE_MICROBATCHES = 4
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -2841,10 +2867,13 @@ def train_bound_ms(cfg, params, products: int) -> dict:
             "step_tflop": 3 * products * fwd / 1e12}
 
 
-def step_parts_ms(model, tcfg, params, batch, modes=None) -> dict:
+def step_parts_ms(model, tcfg, params, batch, modes=None, mesh=None) -> dict:
     """Device ms of one step's forward (the loss), backward (autograd) and
     AdamW update, by CUDA events recorded between them; ``modes`` (host
-    ints) are bound as device scalars, as the modal step binds them."""
+    ints) are bound as device scalars, as the modal step binds them.  With
+    ``mesh`` the parameters are DTensors and the parts run as the step over
+    that mesh runs them (``mesh_scope``, the batch laid out first, the
+    gradients put in their parameters' placements before AdamW)."""
     loss_fn = make_loss_fn(model, tcfg)
     opt = adamw.init_state(params, tcfg.optimizer)
     live = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
@@ -2854,15 +2883,18 @@ def step_parts_ms(model, tcfg, params, batch, modes=None) -> dict:
         view = DeviceModes(tuple(modes), tree.leaves(params)[0].device)
         view.write(modes)
         binding = bind_modes(view.scalars)
-    torch.cuda.synchronize()
-    with binding, torch.enable_grad():
-        ev[0].record()
-        total, _ = loss_fn(tree.unflatten(params, live), batch)
-        ev[1].record()
-        grads = torch.autograd.grad(total, live)
-        ev[2].record()
-    adamw.apply_updates(params, tree.unflatten(params, list(grads)), opt, tcfg.optimizer)
-    ev[3].record()
+    with binding, mesh_scope(mesh):
+        if mesh is not None:
+            batch = laid_out(batch, mesh)
+        torch.cuda.synchronize()
+        with torch.enable_grad():
+            ev[0].record()
+            total, _ = loss_fn(tree.unflatten(params, live), batch)
+            ev[1].record()
+            grads = tree.unflatten(params, list(torch.autograd.grad(total, live)))
+            ev[2].record()
+        adamw.apply_updates(params, like_params(grads, params), opt, tcfg.optimizer)
+        ev[3].record()
     ev[3].synchronize()
     return {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
             "adamw_ms": ev[2].elapsed_time(ev[3])}
@@ -3097,6 +3129,243 @@ def phase_train(params_cache, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# training over a mesh
+# ---------------------------------------------------------------------------
+
+
+def gathered(state):
+    return tree.map_tree(lambda x: x.full_tensor(), state)
+
+
+def timed_step(step_fn, state, batch) -> tuple[dict, dict, float]:
+    """One step: (new state, metrics, host wall ms up to its loss on the
+    host, which waits for the step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = step_fn(state, batch)
+    check(math.isfinite(float(m["loss"])), "distributed: a non-finite loss")
+    return new, m, (time.perf_counter() - t0) * 1e3
+
+
+def phase_distributed(params_cache, card: str) -> dict:
+    """The port's training over a ``DeviceMesh`` on the card: one rank over
+    NCCL (the card is one GPU; several ranks run on the CPU in the tests),
+    ``qwen1.5-0.5b`` at full width and depth (``model.init(0)``), batch 8 x
+    128 from ``SyntheticLM(seed=0)``, through the train step a user calls:
+    (a) the ``native_f32`` step on a (1, 1) ('data', 'model') mesh, the
+        state laid out by ``param_shardings``: its losses and parameters
+        after 2 steps against the unsharded step's, bit for bit (else held
+        to DIST_TOL of each leaf's scale, the distance printed);
+    (b) step wall ms (DIST_TIMED_PAIRS pairs in turns: unsharded, sharded,
+        sharded, unsharded ...), one step's forward / backward / AdamW ms by
+        CUDA events and a profiled step's busy share, sharded against
+        unsharded: what DTensor's host dispatch costs;
+    (c) ``grad_compression`` on a (1, 1, 1) ('pod', 'data', 'model') mesh:
+        ``compressed_psum_pod`` of fixed tensors equal to
+        ``compress_decompress`` bit for bit, 3 EF steps (the loss falls, the
+        residual nonzero), and the bytes gathered over 'pod' int8 codes and
+        f32 scales only (``compress.pod_traffic``);
+    (d) ``pipeline_apply`` at S = 1 with a qwen block as the stage against
+        the block applied microbatch by microbatch, forward and gradient;
+    (e) the state after (a) saved from the (1, 1) mesh, restored unsharded
+        and onto the (1, 1, 1) mesh as (c)'s step lays its state out (on the
+        pod-free mesh, zero EF residuals beside): every leaf equal, the next
+        losses bit for bit (the unsharded step's on the restored state
+        against its own on the gathered state; (c)'s step's on the restored
+        state against the (1, 1) mesh's on the saved one: both report the
+        loss before their update);
+    (f) no kernel launched and nothing built."""
+    release()
+    builds = build.BUILD_COUNT
+    native = full_width_model(PRESETS["native_f32"])
+    params = params_cache(native)
+    cfg = native.cfg
+    batch = put_batch_on("cuda")(
+        SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0).next_batch())
+    device = init_distributed("cuda")
+    backend = dist.get_backend()
+    check(backend == "nccl", f"distributed: the process group runs over {backend}")
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+    arms: dict = {}
+    build.reset_launch_counts()
+
+    # (a) sharded against unsharded, 2 steps from one state
+    tcfg = train_config(6)
+    plain_step = make_train_step(native, tcfg)
+    mesh_step = make_train_step(native, tcfg, mesh)
+    state0 = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+    sharded0 = put(state0, state_shardings(params, cfg, mesh, tcfg))
+    check(all(type(x).__name__ == "DTensor" for x in tree.leaves(sharded0)),
+          "distributed (a): a leaf of the laid-out state is not a DTensor")
+    s_plain, s_mesh, losses = state0, sharded0, {"unsharded": [], "sharded": []}
+    for _ in range(2):
+        s_plain, m, _ = timed_step(plain_step, s_plain, batch)
+        losses["unsharded"].append(float(m["loss"]))
+        s_mesh, m, _ = timed_step(mesh_step, s_mesh, batch)
+        losses["sharded"].append(float(m["loss"]))
+    got = tree.leaves(gathered(s_mesh["params"]))
+    want = tree.leaves(s_plain["params"])
+    bitwise = (losses["sharded"] == losses["unsharded"]
+               and all(torch.equal(a, b) for a, b in zip(got, want)))
+    param_gap = leaf_gap(got, want)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"], losses["unsharded"]))
+    arms["a_sharded_step"] = dict(
+        mesh=[1, 1], losses=losses, bitwise_equal=bitwise, param_gap_over_scale=param_gap,
+        loss_gap_rel=loss_gap, tolerance=DIST_TOL,
+        placements_kept=all(tuple(a.placements) == tuple(b.placements) for a, b in zip(
+            tree.leaves(sharded0["params"]), tree.leaves(s_mesh["params"]))))
+    check(bitwise or (param_gap <= DIST_TOL and loss_gap <= DIST_TOL),
+          f"distributed (a): {arms['a_sharded_step']}")
+    check(arms["a_sharded_step"]["placements_kept"], "distributed (a): placements changed")
+    del got, want, s_plain
+    release()
+
+    # (b) what the mesh costs: wall in turns, parts by CUDA events, busy share
+    walls = {"unsharded": [], "sharded": []}
+    sp, sm = state0, sharded0
+    for i in range(DIST_TIMED_PAIRS):
+        order = ("unsharded", "sharded") if i % 2 == 0 else ("sharded", "unsharded")
+        for name in order:
+            if name == "unsharded":
+                sp, _, ms = timed_step(plain_step, sp, batch)
+            else:
+                sm, _, ms = timed_step(mesh_step, sm, batch)
+            walls[name].append(ms)
+    del sp, sm
+    release()
+    arms["b_cost"] = {
+        "step_wall_ms": walls,
+        "step_wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
+        "unsharded": dict(step_parts_ms(native, tcfg, params, batch),
+                          **profiled_step(plain_step, params, tcfg, batch)),
+        "sharded": dict(step_parts_ms(native, tcfg, sharded0["params"], batch, mesh=mesh),
+                        **profiled_step(mesh_step, sharded0["params"], tcfg, batch))}
+    med = arms["b_cost"]["step_wall_ms_median"]
+    arms["b_cost"]["sharded_over_unsharded"] = med["sharded"] / med["unsharded"]
+    release()
+
+    # (c) int8 error-feedback compression over 'pod'
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn((1 << 20) + 100, generator=gen, device="cuda")
+    red, new_r = compress.compressed_psum_pod({"w": g}, {"w": torch.zeros_like(g)}, mesh3)
+    approx, resid = compress.compress_decompress(g)
+    check(torch.equal(red["w"], approx) and torch.equal(new_r["w"], resid),
+          "distributed (c): compressed_psum_pod != compress_decompress at one pod")
+    del g, red, new_r, approx, resid
+    ctcfg = dataclasses.replace(train_config(3), grad_compression=True)
+    smesh = state_mesh(mesh3, ctcfg)
+    cstate = {"params": params, "opt": adamw.init_state(params, ctcfg.optimizer),
+              "residual": tree.map_tree(torch.zeros_like, params)}
+    cstate = put(cstate, state_shardings(params, cfg, mesh3, ctcfg))
+    ef_step = make_train_step(native, ctcfg, mesh3)
+    compress.reset_pod_traffic()
+    ef_losses, ef_ms = [], []
+    for _ in range(3):
+        cstate, m, ms = timed_step(ef_step, cstate, batch)
+        ef_losses.append(float(m["loss"]))
+        ef_ms.append(ms)
+    traffic = compress.pod_traffic()
+    elems = sum(x.numel() for x in tree.leaves(params))
+    blocks = sum(-(-x.numel() // 512) for x in tree.leaves(params))
+    res_max = max(float(x.full_tensor().abs().max()) for x in tree.leaves(cstate["residual"]))
+    arms["c_compression"] = dict(
+        mesh=[1, 1, 1], state_mesh=list(smesh.mesh_dim_names), losses=ef_losses,
+        step_wall_ms=ef_ms, residual_max=res_max, pod_traffic_bytes=traffic)
+    check(ef_losses[-1] < ef_losses[0], f"distributed (c): the loss did not fall: {ef_losses}")
+    check(res_max > 0, "distributed (c): the EF residual is zero")
+    check(traffic == {"int8": 3 * elems, "float32": 3 * blocks * 4},
+          f"distributed (c): pod traffic {traffic}, want int8 {3 * elems} + scales")
+    del cstate
+    release()
+
+    # (d) the pipeline at S = 1: a qwen block as the stage
+    pmesh = make_mesh((1,), ("pod",), "cuda")
+    stage = tree.map_tree(lambda x: x[0:1], params["layers"]["seg0_dense"])
+    positions = torch.arange(TRAIN_SEQ, device="cuda")
+
+    def stage_fn(p, x):
+        return _block_apply(p, x, cfg, "dense", positions=positions)[0]
+
+    xs = torch.randn((PIPE_MICROBATCHES, TRAIN_BATCH // PIPE_MICROBATCHES, TRAIN_SEQ,
+                      cfg.d_model), generator=gen, device="cuda")
+    live = [x.detach().requires_grad_(True) for x in tree.leaves(stage)]
+    with torch.enable_grad():
+        out = pipeline.pipeline_apply(stage_fn, tree.unflatten(stage, live), xs, pmesh, "pod")
+        g_pipe = torch.autograd.grad(out.sum(), live)
+        one = tree.map_tree(lambda x: x[0], tree.unflatten(stage, live))
+        ref = torch.stack([stage_fn(one, xs[i]) for i in range(PIPE_MICROBATCHES)])
+        g_ref = torch.autograd.grad(ref.sum(), live)
+    fwd_gap = float((out - ref).abs().max() / ref.abs().max())
+    grad_gap = leaf_gap(list(g_pipe), list(g_ref))
+    arms["d_pipeline"] = dict(
+        stages=1, microbatches=PIPE_MICROBATCHES, bubble=pipeline.bubble_fraction(1, 4),
+        forward_bitwise=bool(torch.equal(out, ref)), forward_gap_over_scale=fwd_gap,
+        grad_bitwise=all(torch.equal(a, b) for a, b in zip(g_pipe, g_ref)),
+        grad_gap_over_scale=grad_gap)
+    check(torch.allclose(out, ref, rtol=2e-5, atol=2e-6), f"distributed (d): {arms['d_pipeline']}")
+    check(all(torch.allclose(a, b, rtol=2e-4, atol=2e-5) for a, b in zip(g_pipe, g_ref)),
+          f"distributed (d): {arms['d_pipeline']}")
+    del out, ref, g_pipe, g_ref, live, xs
+    release()
+
+    # (e) save from the mesh, restore unsharded and onto (1, 1, 1)
+    shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(DIST_CKPT_DIR, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(2, s_mesh)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    full = gathered(s_mesh)
+    t0 = time.perf_counter()
+    _, restored = mgr.restore(device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_u = all(torch.equal(a, b) for a, b in zip(tree.leaves(restored), tree.leaves(full)))
+    _, mu = plain_step(restored, batch)
+    del restored
+    _, mg = plain_step(full, batch)
+    del full
+    release()
+    # onto the (1, 1, 1) mesh as (c)'s step holds its state: on the pod-free
+    # mesh, with zero EF residuals beside (the file holds none)
+    t0 = time.perf_counter()
+    _, restored3 = mgr.restore(device="cuda", shardings=state_shardings(params, cfg, mesh3, ctcfg))
+    torch.cuda.synchronize()
+    restore3_s = time.perf_counter() - t0
+    same_3 = all(torch.equal(a.full_tensor(), b.full_tensor())
+                 for a, b in zip(tree.leaves(restored3), tree.leaves(s_mesh)))
+    restored3["residual"] = tree.map_tree(torch.zeros_like, restored3["params"])
+    _, m3 = ef_step(restored3, batch)
+    del restored3
+    _, mm = mesh_step(s_mesh, batch)
+    with open(os.path.join(DIST_CKPT_DIR, "step_00000002", "manifest.json")) as fh:
+        manifest = json.load(fh)
+    shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    next_loss = {"restored_unsharded": float(mu["loss"]), "gathered_unsharded": float(mg["loss"]),
+                 "restored_on_1x1x1_ef": float(m3["loss"]), "sharded_1x1": float(mm["loss"])}
+    arms["e_elastic"] = dict(save_s=save_s, restore_unsharded_s=restore_s,
+                             restore_1x1x1_s=restore3_s, bytes=manifest["bytes"],
+                             process_count=manifest["process_count"], next_loss=next_loss)
+    check(same_u and same_3, "distributed (e): a restored leaf differs")
+    check(next_loss["restored_unsharded"] == next_loss["gathered_unsharded"]
+          and next_loss["restored_on_1x1x1_ef"] == next_loss["sharded_1x1"],
+          f"distributed (e): next losses {next_loss}")
+    del s_mesh, sharded0, state0
+    release()
+
+    # (f) no kernel launched, nothing built
+    launches = build.launch_counts()
+    check(sum(launches.values()) == 0, f"distributed: kernels launched: {launches}")
+    check(build.BUILD_COUNT == builds, "distributed: something was built")
+    dist.destroy_process_group()
+    emit("distributed", card=card, backend=backend, world=1, device=str(device),
+         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, arms=arms, launches=launches, build_count=build.BUILD_COUNT)
+    return {}
+
+
+# ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
 
@@ -3219,6 +3488,8 @@ def main() -> int:
                     main_counts[kname] += c
     if "train" in phases:
         phase_train(params_cache, card)
+    if "distributed" in phases:
+        phase_distributed(params_cache, card)
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

@@ -37,6 +37,7 @@ import functools
 from typing import Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core import limb as limb_lib
 from repro_torch.core.precision import (
@@ -85,6 +86,25 @@ def _neumaier_sum(parts: Sequence[Tensor]) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _einsum(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    """``torch.einsum(eq, a, b)``.  A DTensor ``a`` sharded on one of its
+    free dims after the first (the sequence of a sequence-parallel arch's
+    (batch, sequence, d) activations) has its first dim made a batch dim of
+    both operands (``b`` expanded, a view): ``einsum`` would otherwise
+    flatten the free dims into one, which DTensor (torch 2.11) refuses
+    where a dim other than the first of them is sharded."""
+    if isinstance(a, DTensor) and a.ndim >= 3:
+        left, rest = eq.split(",")
+        right, out = rest.split("->")
+        lead = left[0]
+        if lead in out and lead not in right and any(
+                isinstance(p, Shard) and p.dim >= 1 and left[p.dim] not in right
+                for p in a.placements):
+            return torch.einsum(f"{left},{lead}{right}->{out}", a,
+                                b.expand(a.shape[0], *b.shape))
+    return torch.einsum(eq, a, b)
+
+
 def _limb_einsum(
     eq: str,
     a,
@@ -111,10 +131,10 @@ def _limb_einsum(
     require_full_f32_matmul(_device_of(a))
     terms = limb_lib.limb_product_terms(k)
     if compensated:
-        return _neumaier_sum([torch.einsum(eq, a_f(i), b_f(j)) for i, j in terms])
+        return _neumaier_sum([_einsum(eq, a_f(i), b_f(j)) for i, j in terms])
     acc = None
     for i, j in terms:
-        p = torch.einsum(eq, a_f(i), b_f(j))
+        p = _einsum(eq, a_f(i), b_f(j))
         acc = p if acc is None else acc + p
     return acc
 
@@ -132,7 +152,7 @@ def _limb_einsum_ladder(eq: str, a, b, rounding: str = "rne") -> list[Tensor]:
     a_f = limb_lib.limb_operands(a, kmax, rounding)
     b_f = limb_lib.limb_operands(b, kmax, rounding)
     require_full_f32_matmul(_device_of(a))
-    products = {(i, j): torch.einsum(eq, a_f(i), b_f(j))
+    products = {(i, j): _einsum(eq, a_f(i), b_f(j))
                 for i, j in limb_lib.limb_product_terms(kmax)}
     out = []
     for mode in F32_MODES:
@@ -231,7 +251,7 @@ def mp_einsum(
         av = a.hi + a.lo if isinstance(a, DoubleF32) else a
         bv = b.hi + b.lo if isinstance(b, DoubleF32) else b
         require_full_f32_matmul(dev)
-        return torch.einsum(eq, av.to(torch.float32), bv.to(torch.float32))
+        return _einsum(eq, av.to(torch.float32), bv.to(torch.float32))
     _check_mode_operands(mode, a, b)
     return _limb_einsum(eq, a, b, MODE_LIMBS[mode], rounding)
 

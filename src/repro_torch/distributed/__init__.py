@@ -1,8 +1,16 @@
-"""repro_torch.distributed — the sharding names the training step reads.
-
-Only the no-mesh case is here (one device): ``BATCH_AXES`` and
-``constrain``, which is then the identity.  Meshes, parameter shardings,
-gradient compression and pipeline stages over ``torch.distributed`` are
-ROADMAP item A13.
-"""
-from repro_torch.distributed.sharding import BATCH_AXES, constrain  # noqa: F401
+"""repro_torch.distributed — training over a ``DeviceMesh``: the sharding
+rules and ``constrain`` (``sharding``), int8 error-feedback gradient
+compression over 'pod' (``compress``) and the GPipe pipeline
+(``pipeline``), on ``torch.distributed``."""
+from repro_torch.distributed.sharding import (  # noqa: F401
+    BATCH_AXES,
+    AbstractMesh,
+    NamedSharding,
+    constrain,
+    decode_state_shardings,
+    input_shardings,
+    param_shardings,
+    put,
+    replicated,
+    use_mesh,
+)

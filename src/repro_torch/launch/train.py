@@ -12,8 +12,19 @@ schedule (``--slo-err``, ``--slo-ms``).  Gradients flow through the plain
 limb algebra (``impl='xla'``) or one f32 product per site (``'native'``);
 a policy or plan that sends a site to the hand-written kernels
 (``'pallas'``, ``'tile'``) raises ``NotImplementedError`` there, as the
-reference's ``jax.grad`` through a Pallas kernel does.  ``--mesh`` is
-ROADMAP item A13.
+reference's ``jax.grad`` through a Pallas kernel does.
+
+``--mesh D,M`` trains over a (data=D, model=M) ``DeviceMesh`` under
+``torchrun`` with D*M processes, NCCL on the GPU (one per process) or gloo
+with ``--device cpu``:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen1.5-0.5b --smoke --device cpu --mesh 2,2 --steps 3
+
+Parameters, moments and inputs are laid out by ``distributed.sharding``'s
+rules (the reference launcher's shardings), a checkpoint resumes resharded
+onto the current mesh whatever mesh wrote it, and rank 0 prints.  A world
+size other than D*M is an error.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.policy import PRESETS
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.device import backend_of, resolve_device
+from repro_torch.distributed.sharding import put
+from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import adamw
 from repro_torch.train.loop import LoopConfig, resume_or_init, train_loop
@@ -36,6 +49,7 @@ from repro_torch.train.step import (
     init_train_state,
     make_modal_step,
     make_train_step,
+    state_shardings,
 )
 
 
@@ -81,7 +95,8 @@ def main() -> None:
              "the planner resolves against; empty = TUNE_TABLE env var, "
              "then pure roofline",
     )
-    ap.add_argument("--mesh", default="", help="e.g. '4,2' for (data=4, model=2): A13")
+    ap.add_argument("--mesh", default="", help="e.g. '4,2' for (data=4, model=2), "
+                    "under torchrun with that many processes")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument(
@@ -96,12 +111,18 @@ def main() -> None:
     ap.add_argument("--slo-ms", type=float, default=0.0,
                     help="adapt: per-step latency target in ms (0 = none)")
     args = ap.parse_args()
-    if args.mesh:
-        raise SystemExit("--mesh: training over a mesh is ROADMAP item A13 of the port")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.with_policy(PRESETS[args.policy])
-    device = resolve_device(args.device)  # None -> the GPU, or raise
+    mesh = None
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        device = init_distributed(args.device)
+        mesh = make_mesh(shape, ("data", "model")[: len(shape)], device)
+    else:
+        device = resolve_device(args.device)  # None -> the GPU, or raise
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     if args.accuracy > 0:
         from repro_torch.plan import plan_model_policy
 
@@ -110,9 +131,9 @@ def main() -> None:
             backend=backend_of(device), tune_table=args.tune_table or None,
         )
         cfg = cfg.with_policy(planned)
-        print(f"planned policy ({args.accuracy:.1e} budget): {planned.describe()}")
+        say(f"planned policy ({args.accuracy:.1e} budget): {planned.describe()}")
         for op, p in plans.items():
-            print(f"  {op}: {p.describe()}")
+            say(f"  {op}: {p.describe()}")
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("use examples/ for multimodal drivers on CPU")
     model = build_model(cfg, device=device)
@@ -122,7 +143,7 @@ def main() -> None:
         accum_steps=args.accum,
     )
 
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, mesh)
     schedule = None
     if args.adapt:
         from repro_torch.adapt import SLO, ModeTable, TrainPrecisionSchedule
@@ -131,18 +152,26 @@ def main() -> None:
         schedule = TrainPrecisionSchedule(
             table, SLO(max_err=args.slo_err, target_ms=args.slo_ms or None))
         step_fn = make_modal_step(step_fn)
-        print(f"adaptive precision schedule: start {table.describe()}")
+        say(f"adaptive precision schedule: start {table.describe()}")
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch, seed=0)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    start, state = resume_or_init(
-        mgr, lambda: init_train_state(model, 0, tcfg), device=model.device)
+    if mesh is None:
+        start, state = resume_or_init(
+            mgr, lambda: init_train_state(model, 0, tcfg), device=model.device)
+    else:
+        # every rank makes the same state from the seed and keeps its slices
+        fresh = init_train_state(model, 0, tcfg)
+        shardings = state_shardings(fresh["params"], cfg, mesh, tcfg)
+        start, state = resume_or_init(mgr, lambda: put(fresh, shardings),
+                                      device=model.device, shardings=shardings)
+        del fresh
     if start:
         data.skip_to(start)
-        print(f"resumed at step {start}")
+        say(f"resumed at step {start}")
 
     n = sum(x.numel() for x in tree.leaves(state["params"]))
-    print(f"{args.arch}: {n/1e6:.1f}M params | policy {cfg.policy.describe()} | "
-          f"mesh single | device {model.device}")
+    say(f"{args.arch}: {n/1e6:.1f}M params | policy {cfg.policy.describe()} | "
+        f"mesh {args.mesh or 'single'} | device {model.device}")
 
     pf = Prefetcher(data)
     try:
@@ -151,7 +180,7 @@ def main() -> None:
             LoopConfig(total_steps=args.steps, checkpoint_every=args.checkpoint_every),
             ckpt_manager=mgr, start_step=start, adapt=schedule,
             put_batch=put_batch_on(model.device),
-            on_metrics=lambda r: print(
+            on_metrics=lambda r: say(
                 f"step {r['step']:5d} loss {r['loss']:.4f} gnorm {r['grad_norm']:.2f} "
                 f"dt {r['dt']*1e3:.0f}ms"
                 + (f" mode {r['mode']}" if "mode" in r else "")
@@ -162,10 +191,12 @@ def main() -> None:
         pf.close()
     first = np.mean([h["loss"] for h in hist[:5]])
     last = np.mean([h["loss"] for h in hist[-5:]])
-    print(f"loss {first:.4f} -> {last:.4f}")
+    say(f"loss {first:.4f} -> {last:.4f}")
     if schedule is not None:
-        print(f"precision schedule: {' -> '.join(mode_timeline(hist))} "
-              f"({schedule.table.switches} switches)")
+        say(f"precision schedule: {' -> '.join(mode_timeline(hist))} "
+            f"({schedule.table.switches} switches)")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,12 +17,14 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.adapt.runtime_policy import runtime_mode_for
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.precision import F32_MODES, DoubleF32
 from repro_torch.core.rmpm import mp_einsum, mp_einsum_runtime, mp_matmul_runtime
 from repro_torch.device import backend_of
+from repro_torch.distributed.sharding import BATCH_AXES, constrain
 from repro_torch.plan import execute, plan_matmul
 
 Tensor = torch.Tensor
@@ -600,6 +602,45 @@ def flash_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
 
 
+def _flash_attention_on_shards(q, k, v, policy, *, causal: bool, window: int,
+                               chunk: int):
+    """``flash_attention`` of DTensor q/k/v (B, S, H, hd), each rank on its
+    own shard, as GSPMD partitions the reference's: batch rows and heads are
+    independent, and a rank's rows of a sequence-sharded q attend to the
+    whole K/V from their own offset.  Per mesh dimension, a batch or head
+    shard of q is kept and given to K/V (heads only where the KV head count
+    divides it), a sequence shard of q is kept with K/V whole there, and
+    anything else is replicated first.  (DTensor's own rules for the
+    einsums would flatten (batch, heads), which torch 2.11 refuses when
+    either is sharded.)"""
+    mesh = q.device_mesh
+    sizes = mesh.shape
+    qp, kvp, seq_dims = [], [], []
+    for i, p in enumerate(q.placements):
+        d = p.dim if isinstance(p, Shard) else None
+        if d == 0 or (d == 2 and k.shape[2] % sizes[i] == 0):
+            qp.append(p)
+            kvp.append(p)
+        elif d == 1:
+            qp.append(p)
+            kvp.append(Replicate())
+            seq_dims.append(i)
+        else:
+            qp.append(Replicate())
+            kvp.append(Replicate())
+    ql = q.redistribute(mesh, qp).to_local()
+    # where q's rows are split and K/V whole, each rank's K/V gradient is its
+    # rows' share of the sum
+    kv_grad = [Partial() if i in seq_dims else p for i, p in enumerate(kvp)]
+    kl, vl = (x.redistribute(mesh, kvp).to_local(grad_placements=kv_grad) for x in (k, v))
+    coord, first = mesh.get_coordinate(), 0
+    for i in seq_dims:  # mesh order: the first dimension is the outer one
+        first = first * sizes[i] + coord[i]
+    out = flash_attention(ql, kl, vl, policy, causal=causal, window=window, chunk=chunk,
+                          q_offset=first * ql.shape[1])
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer (projections + rope + flash) — full-sequence and decode
 # ---------------------------------------------------------------------------
@@ -645,6 +686,16 @@ def attention_apply(
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+        if cfg.attn_shard == "sequence":
+            # sequence-parallel attention: Q stays S-sharded over 'model';
+            # K/V are gathered (small for GQA)
+            q = constrain(q, BATCH_AXES, "model", None, None)
+            k = constrain(k, BATCH_AXES, None, None, None)
+            v = constrain(v, BATCH_AXES, None, None, None)
+        else:
+            q = constrain(q, BATCH_AXES, None, "model", None)
+            k = constrain(k, BATCH_AXES, None, "model", None)
+            v = constrain(v, BATCH_AXES, None, "model", None)
     else:
         enc = kv_override[0]
         k = plinear(enc, p["wk"], "qkv", policy).reshape(b, enc.shape[1], hkv, hd)
@@ -675,9 +726,8 @@ def attention_apply(
                 k_scale=ks_read, v_scale=vs_read, chunk=cfg.attn_chunk,
             )
     else:
-        out = flash_attention(
-            q, k, v, policy, causal=causal, window=window, chunk=cfg.attn_chunk
-        )
+        attend = _flash_attention_on_shards if isinstance(q, DTensor) else flash_attention
+        out = attend(q, k, v, policy, causal=causal, window=window, chunk=cfg.attn_chunk)
     out = pmm(out.reshape(b, s, hq * hd), p["wo"]["w"], "out", policy)
     return out, cache
 

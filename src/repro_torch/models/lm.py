@@ -36,8 +36,10 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import BATCH_AXES, constrain
 from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -150,10 +152,35 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
     return p
 
 
+def _constrain_act(x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The activations' layout over a mesh: batch over ('pod', 'data'), and
+    the sequence over 'model' for the sequence-parallel archs."""
+    if cfg.attn_shard == "sequence":
+        return constrain(x, BATCH_AXES, "model", None)
+    return constrain(x, BATCH_AXES, None, None)
+
+
+def _gather_rows(w: DTensor, tokens: Tensor) -> DTensor:
+    """``w[tokens]`` of a DTensor table: the table gathered whole, each rank
+    indexing it with its own tokens, the rows laid out as the tokens are.
+    Each rank's gradient of the whole table is then its tokens' share of the
+    sum where the tokens are split, and the whole sum where they are not.
+    (DTensor's own rules for the gather's backward fail in torch 2.11.)"""
+    mesh = w.device_mesh
+    if isinstance(tokens, DTensor):
+        placements, tokens = tuple(tokens.placements), tokens.to_local()
+    else:
+        placements = (Replicate(),) * mesh.ndim
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in placements]
+    whole = w.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grad)
+    return DTensor.from_local(whole[tokens.long()], mesh, placements, run_check=False)
+
+
 def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, kind: str, *, positions=None,
                  cache=None, enc_out: Tensor | None = None, write_pools: bool = True):
     """One block of ``kind``.  Returns (x, new_cache, aux): ``aux`` is a MoE
     block's load-balance loss, None for the other kinds."""
+    x = _constrain_act(x, cfg)
     if kind in ("dense", "moe", "enc", "dec", "attn_local"):
         h, new_cache = attention_apply(
             p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
@@ -287,14 +314,20 @@ class LanguageModel:
     # -- shared helpers -------------------------------------------------------
 
     def _embed(self, params: Params, tokens: Tensor) -> Tensor:
-        return params["embed"]["w"][tokens.long()].to(torch.float32)  # gather
+        w = params["embed"]["w"]
+        x = _gather_rows(w, tokens) if isinstance(w, DTensor) else w[tokens.long()]
+        return _constrain_act(x.to(torch.float32), self.cfg)
 
     def _logits(self, params: Params, x: Tensor) -> Tensor:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         if cfg.tie_embeddings:
-            return pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
-        return pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
+            logits = pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
+        else:
+            logits = pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
+        if cfg.attn_shard == "sequence":
+            return constrain(logits, BATCH_AXES, "model", None)
+        return constrain(logits, BATCH_AXES, None, "model")
 
     def _stack(self, params: Params, x, *, caches=None, positions=None, enc_out=None,
                write_pools=True):
@@ -322,7 +355,7 @@ class LanguageModel:
         the non-causal ``enc`` stack, then the final norm the decoder's
         logits share (the reference's ``prefill_encoder``)."""
         cfg = self.cfg
-        x = frames.to(device=self.device, dtype=torch.float32)
+        x = _constrain_act(frames.to(device=self.device, dtype=torch.float32), cfg)
         positions = torch.arange(x.shape[1], device=x.device)
         for i in range(cfg.n_encoder_layers):
             x, _, _ = _block_apply(layer_params(params["enc_layers"], i), x, cfg, "enc",

@@ -3,8 +3,8 @@
 Fault tolerance model (the reference's):
   * periodic async checkpoints + atomic commit (checkpoint.manager)
   * SIGTERM emergency save (preemption)
-  * resume: restore the latest checkpoint onto the given device,
-    deterministic data skip-ahead
+  * elastic resume: restore the latest checkpoint onto the given device
+    or resharded onto the current mesh, deterministic data skip-ahead
   * straggler monitor: per-step wall-time EWMA; steps beyond
     ``straggler_z`` sigma are logged with the step index — on a real fleet
     this feeds the scheduler's replace-worker decision
@@ -126,9 +126,11 @@ def train_loop(
     return state, history
 
 
-def resume_or_init(ckpt_manager, init_fn: Callable[[], Any], device=None) -> tuple[int, Any]:
-    """Resume: restore the latest checkpoint onto ``device`` (None: the GPU)
+def resume_or_init(ckpt_manager, init_fn: Callable[[], Any], device=None,
+                   shardings: Any = None) -> tuple[int, Any]:
+    """Elastic resume: restore the latest checkpoint onto ``device`` (None:
+    the GPU), resharded by ``shardings`` onto the current mesh when given,
     or initialize fresh."""
     if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
-        return ckpt_manager.restore(device=device)
+        return ckpt_manager.restore(device=device, shardings=shardings)
     return 0, init_fn()

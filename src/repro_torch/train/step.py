@@ -12,20 +12,48 @@ raises too.
 Gradient accumulation over ``accum_steps`` microbatches bounds activation
 memory: the reference scans them; here a Python loop sums their gradients
 and divides by ``accum_steps``.  The step is eager: nothing is compiled or
-captured.  ``grad_compression`` (int8 error-feedback over a 'pod' mesh
-axis) does nothing without a mesh, in the reference as here; meshes are
-ROADMAP item A13.
+captured.
+
+Over a mesh (``make_train_step(model, tcfg, mesh)``, a ``DeviceMesh``) the
+state's tensors are ``DTensor``s laid out by ``distributed.sharding``'s
+rules, and the step runs under ``use_mesh`` (the model's ``constrain``
+sites redistribute its activations) and ``implicit_replication``: the
+plain tensors the model makes for itself (RoPE tables, positions, masks,
+the vocab iota) hold the same values on every rank, and are read as
+replicated.  A plain batch is laid out by ``input_shardings`` first, as
+the reference's ``jit`` lays out its ``in_shardings``.  Gradients are
+redistributed to their parameters' placements before AdamW; the metrics
+come back as plain tensors.  ``grad_compression`` with a 'pod' axis takes
+the reference's route: the state lives on ``compress.pod_free(mesh)``
+(``state_mesh``), each pod computes its gradients on its own rows of the
+batch, the int8 error-feedback reduction (``compress.ef_reduce_tree``) is
+the only traffic on 'pod', and the metrics are averaged over 'pod'.
+Without a mesh the step is the one-device step, and compression does
+nothing, in the reference as here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree
 from repro_torch.adapt.runtime_policy import DeviceModes, bind_modes
-from repro_torch.distributed.sharding import BATCH_AXES, constrain
+from repro_torch.distributed.compress import ef_reduce_tree, pod_free
+from repro_torch.distributed.sharding import (
+    BATCH_AXES,
+    axis_sizes,
+    constrain,
+    input_shardings,
+    param_shardings,
+    replicated,
+    use_mesh,
+)
 from repro_torch.models.lm import LanguageModel
 from repro_torch.optim import adamw
 
@@ -38,7 +66,7 @@ class TrainConfig:
     accum_steps: int = 1
     aux_loss_weight: float = 0.01
     z_loss_weight: float = 1e-4
-    grad_compression: bool = False  # int8 EF compression over the pod axis (A13)
+    grad_compression: bool = False  # int8 EF compression over the pod axis
 
 
 def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float,
@@ -47,10 +75,12 @@ def cross_entropy(logits: Tensor, labels: Tensor, z_loss: float,
 
     The label log-prob is the reference's masked sum over the vocab axis
     (one nonzero term, so the same value a gather gives), kept because it
-    is the vocab-parallel form a sharded vocab needs (A13): a gather would
+    is the vocab-parallel form a sharded vocab needs: a gather would
     collect the whole (B, S, V) logits on every rank.  ``seq_sharded``
     names the axis ``constrain`` puts on 'model' (sequence instead of
-    vocab)."""
+    vocab); over a mesh the iota is a plain tensor, read as replicated, so
+    its ``constrain`` is the identity and the mask follows the logits'
+    layout."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     vocab_iota = torch.arange(logits.shape[-1], dtype=torch.int32, device=logits.device)
@@ -131,6 +161,75 @@ def make_grad_fn(model: LanguageModel, tcfg: TrainConfig) -> Callable:
     return compute_grads
 
 
+def _compressing(tcfg: TrainConfig, mesh) -> bool:
+    return tcfg.grad_compression and mesh is not None and "pod" in axis_sizes(mesh)
+
+
+def state_mesh(mesh, tcfg: TrainConfig):
+    """The mesh the training state lives on: ``mesh``, or with
+    ``grad_compression`` over a 'pod' axis the mesh without it
+    (``compress.pod_free``)."""
+    return pod_free(mesh) if _compressing(tcfg, mesh) else mesh
+
+
+def state_shardings(params: Any, cfg, mesh, tcfg: TrainConfig) -> dict:
+    """The reference launcher's shardings of the training state, on
+    ``state_mesh(mesh, tcfg)``: parameters and both moments by
+    ``param_shardings``, the step replicated, EF residuals as the
+    parameters."""
+    smesh = state_mesh(mesh, tcfg)
+    ps = param_shardings(params, cfg, smesh)
+    out = {"params": ps, "opt": {"step": replicated(smesh), "m": ps, "v": ps}}
+    if tcfg.grad_compression:
+        out["residual"] = ps
+    return out
+
+
+def _plain(x: Tensor) -> Tensor:
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def mesh_scope(mesh) -> contextlib.AbstractContextManager:
+    """What a step over ``mesh`` runs under: ``use_mesh(mesh)`` and
+    ``implicit_replication()`` (nothing with no mesh)."""
+    scope = contextlib.ExitStack()
+    if mesh is not None:
+        scope.enter_context(use_mesh(mesh))
+        scope.enter_context(implicit_replication())
+    return scope
+
+
+def laid_out(batch: dict, mesh) -> dict:
+    """The batch with every plain leaf (the whole batch, the same on every
+    rank) laid out by ``input_shardings``; DTensor leaves as they are."""
+    shard = input_shardings(batch, mesh)
+    return {k: x if isinstance(x, DTensor) else shard[k].put(x) for k, x in batch.items()}
+
+
+def _pod_rows(batch: dict, mesh, sub) -> dict:
+    """This pod's rows of a batch laid out on ``mesh``, as DTensors on the
+    pod-free mesh ``sub`` (the reference's ``in_specs=P('pod')``)."""
+    pod = list(axis_sizes(mesh)).index("pod")
+    out = {}
+    for k, x in batch.items():
+        placements = list(x.placements)
+        if placements[pod] != Shard(0) and axis_sizes(mesh)["pod"] > 1:
+            raise ValueError(f"batch[{k!r}]: {x.shape[0]} rows do not split over 'pod'")
+        del placements[pod]
+        out[k] = DTensor.from_local(x.to_local(), sub, placements, run_check=False)
+    return out
+
+
+def like_params(grads: Any, params: Any) -> Any:
+    """Each gradient in its parameter's placements (a replicated parameter's
+    partial sums all-reduced)."""
+    def one(g, p):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+    return tree.map_tree(one, grads, params)
+
+
 def make_train_step(model: LanguageModel, tcfg: TrainConfig, mesh=None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -138,19 +237,42 @@ def make_train_step(model: LanguageModel, tcfg: TrainConfig, mesh=None) -> Calla
     ``batch`` holds ``tokens`` and ``labels`` tensors (and ``frames`` /
     ``pixel_embeds`` for the enc-dec and VLM families).  ``metrics``:
     ``loss``, ``aux_loss``, ``lr``, ``grad_norm``, f32 scalars on the
-    device.  The new state's tensors are new: ``state`` stays as it was."""
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh is ROADMAP item A13")
+    device.  The new state's tensors are new: ``state`` stays as it was.
+    ``mesh``: see the module's docstring."""
     compute_grads = make_grad_fn(model, tcfg)
+    compress = _compressing(tcfg, mesh)
+    sub = state_mesh(mesh, tcfg) if mesh is not None else None
+
+    def grads_of(state, batch):
+        params = state["params"]
+        if mesh is None:
+            grads, metrics = compute_grads(params, batch)
+            return grads, metrics, state.get("residual")
+        batch = laid_out(batch, mesh)
+        if compress:
+            batch = _pod_rows(batch, mesh, sub)
+        grads, metrics = compute_grads(params, batch)
+        grads = like_params(grads, params)
+        metrics = {k: _plain(v) for k, v in metrics.items()}
+        if not compress:
+            return grads, metrics, state.get("residual")
+        group = mesh.get_group("pod")
+        grads, residual = ef_reduce_tree(grads, state["residual"], group)
+        names = sorted(metrics)
+        both = torch.stack([metrics[k] for k in names])
+        dist.all_reduce(both, group=group)
+        both = both / dist.get_world_size(group)
+        return grads, dict(zip(names, both.unbind())), residual
 
     def train_step(state, batch):
-        params = state["params"]
-        grads, metrics = compute_grads(params, batch)
-        params, opt, om = adamw.apply_updates(params, grads, state["opt"], tcfg.optimizer)
-        metrics = dict(metrics, **om)
+        with mesh_scope(sub):
+            grads, metrics, new_res = grads_of(state, batch)
+            params, opt, om = adamw.apply_updates(
+                state["params"], grads, state["opt"], tcfg.optimizer)
+        metrics = dict(metrics, **{k: _plain(v) for k, v in om.items()})
         new_state = {"params": params, "opt": opt}
-        if state.get("residual") is not None:
-            new_state["residual"] = state["residual"]
+        if new_res is not None:
+            new_state["residual"] = new_res
         return new_state, metrics
 
     return train_step

@@ -110,3 +110,51 @@ CACHE_FLIP_SHARE = 0.25
 #: code when the two frameworks' values differ by their f32 arithmetic alone
 #: (see ``test_prefill_and_decode_logits_vs_reference``)
 APPENDED_FLIP_LIMIT_SHARE = 2.0**-6
+
+
+def flat_numpy(tree_, prefix: str) -> dict:
+    """A nested dict of numpy arrays as ``{prefix/a/b: array}`` (the
+    checkpoint manager's keys)."""
+    if isinstance(tree_, dict):
+        out = {}
+        for k, v in tree_.items():
+            out.update(flat_numpy(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree_)}
+
+
+def spawn_ranks(scenario: str, world: int, d, timeout: float = 300.0) -> list[dict]:
+    """Run ``tests/torch_dist_ranks.py scenario`` as ``world`` gloo ranks on
+    the CPU (one process each, rendezvous through a FileStore in ``d``) and
+    return each rank's JSON record; a rank that fails or outlives
+    ``timeout`` fails the caller with its output."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(here), "src"),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_dist_ranks.py"), scenario, str(r),
+         str(world), str(d)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    outs = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs

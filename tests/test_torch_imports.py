@@ -71,7 +71,8 @@ def test_the_package_has_the_modules_of_the_slice():
                  "tune", "tune.table", "tune.runner", "tune.__main__",
                  "spec", "spec.config", "spec.rollout",
                  "tree", "optim.adamw", "train.step", "train.loop", "data.pipeline",
-                 "checkpoint.manager", "distributed.sharding", "launch.train"):
+                 "checkpoint.manager", "distributed.sharding", "launch.train",
+                 "distributed.compress", "distributed.pipeline", "launch.mesh"):
         assert f"repro_torch.{want}" in MODULES, want
 
 

@@ -387,12 +387,14 @@ def test_launcher_adapt_prints_schedule(tmp_path):
 
 
 @pytest.mark.parametrize("args, says", [
-    (("--arch", "qwen1.5-0.5b", "--mesh", "4,2"), "A13"),
+    pytest.param(("--arch", "qwen1.5-0.5b", "--mesh", "4,2"),
+                 "a (4, 2) mesh needs 8 ranks; this run has 1", id="args0-A13"),
     (("--arch", "whisper-medium"), "multimodal"),
     (("--arch", "qwen1.5-0.5b", "--policy", "mixed", "--accuracy", "0.03"), None),
 ])
 def test_launcher_refusals(args, says):
-    """``--mesh`` names ROADMAP A13; enc-dec exits as the reference's does;
+    """``--mesh`` in a run of fewer ranks than the mesh has (ROADMAP A13's
+    launcher) refuses; enc-dec exits as the reference's does;
     a planned policy runs (on the CPU the planner keeps the limb algebra)."""
     out = _launch(*args, "--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
                   "--seq", "8")
