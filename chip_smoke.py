@@ -38,7 +38,11 @@ kernels must raise, as the reference's ``jax.grad`` through a Pallas kernel
 does, and no kernel launches while training), then trains it over a
 one-rank NCCL ``DeviceMesh`` (``distributed``: the (1, 1) mesh step against
 the unsharded one and its cost, int8 gradient compression over a (1, 1, 1)
-mesh, the S = 1 pipeline, a checkpoint restored onto the mesh).  The limb
+mesh, the S = 1 pipeline, a checkpoint restored onto the mesh), and last
+counts steps with the op recorder (``cost``: the train step on real and
+fake tensors against its measured time, the decode step on the card and
+on the CPU, the analysis gate on the card, two production dry-run cells
+on this machine's CPU).  The limb
 and mode-map kernels are also held and timed at those models' GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
@@ -72,6 +76,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import weakref
 
@@ -126,6 +131,8 @@ from repro_torch.kernels.tile_matmul.ops import (  # noqa: E402
     tile_matmul_plain,
     tile_matmul_runtime,
 )
+from repro_torch import oprecord  # noqa: E402
+from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.train import mode_timeline, put_batch_on  # noqa: E402
@@ -203,7 +210,7 @@ PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
           "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
           "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal", "train",
-          "distributed")
+          "distributed", "cost")
 #: the recurrent families' models (full width; see their phases for depth)
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-9b"
@@ -397,8 +404,9 @@ def gemm_bound_ms(m: int, k: int, n: int, passes: float,
     read once, each of the ``outputs`` f32 results written once) over the
     memory rate, or the retained passes' operations over the bf16
     tensor-core rate."""
-    t_bytes = 4.0 * (m * k + k * n + outputs * m * n) / HBM_BW
-    t_ops = passes * 2.0 * m * k * n / PEAK_FLOPS
+    flops, nbytes = oprecord.gemm_work(m, k, n, passes, outputs)
+    t_bytes = nbytes / HBM_BW
+    t_ops = flops / PEAK_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -3370,6 +3378,194 @@ def phase_distributed(params_cache, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the cost reader (launch.op_cost), the analysis gate and the dry run
+# ---------------------------------------------------------------------------
+
+#: the production dry-run cells the cost phase runs on this machine's CPU
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"))
+#: their policy: one f32 product a site keeps the phase near two minutes
+#: (``paper_baseline``'s limb algebra makes the train cell's trace ~4x longer;
+#: the full sweep runs it)
+DRYRUN_POLICY = "native_f32"
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_OUT = os.path.join(_ROOT, "build", "dryrun_cost")
+
+
+def start_dryrun_cells() -> tuple[threading.Thread, list]:
+    """Each of ``DRYRUN_CELLS`` on ``pod16x16`` in a process of its own on
+    the CPU (``dryrun.run_cells``: a fake process group of 256 ranks, fake
+    tensors), started now on a thread and read by ``finish_dryrun_cells``."""
+    from repro_torch.launch.dryrun import run_cells
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    records: list = []
+    env = {"PYTHONPATH": os.path.join(_ROOT, "src"), "CUDA_VISIBLE_DEVICES": ""}
+    thread = threading.Thread(target=lambda: records.extend(run_cells(
+        [(arch, shape, False) for arch, shape in DRYRUN_CELLS], jobs=len(DRYRUN_CELLS),
+        policy=DRYRUN_POLICY, out=DRYRUN_OUT, cell_timeout=DRYRUN_TIMEOUT_S, env=env)))
+    thread.start()
+    return thread, records
+
+
+def finish_dryrun_cells(started) -> list[dict]:
+    thread, records = started
+    thread.join()
+    check(len(records) == len(DRYRUN_CELLS), f"cost (d): {len(records)} records")
+    out = []
+    for rec in records:
+        cell = rec["cell"]
+        check(rec["status"] == "ok", f"cost (d): {cell}: {rec['status']}: {rec.get('error')}")
+        roof = rec["roofline"]
+        out.append(dict(
+            cell=cell, status=rec["status"],
+            t_trace_s=rec["t_trace_s"], n_events=rec["n_events"],
+            flops_per_device=roof["flops_per_device"],
+            hbm_bytes_per_device=roof["hbm_bytes_per_device"],
+            collective_bytes_per_device=roof["collective_bytes_per_device"],
+            collective_breakdown=roof["collective_breakdown"], dominant=roof["dominant"],
+            t_compute_s=roof["t_compute_s"], t_memory_s=roof["t_memory_s"],
+            t_collective_s=roof["t_collective_s"], memory=rec["memory"],
+            model_flops_global=rec["model_flops_global"]))
+    return out
+
+
+def counted(rec) -> dict:
+    c = rec.cost
+    return {"flops": c.flops, "hbm_bytes": c.hbm_bytes, "events": rec.n_events}
+
+
+def kernel_events(rec) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for ev in rec.events:
+        if ev.kind == "kernel":
+            out[ev.name] = out.get(ev.name, 0) + 1
+    return out
+
+
+def phase_cost(params_cache, card: str) -> dict:
+    """The op recorder and cost reader (``repro_torch.launch.op_cost``) on
+    the card, the analysis gate, and two production dry-run cells:
+    (a) ``qwen1.5-0.5b`` ``native_f32`` train step at full width and depth
+        (the ``train`` phase's batch 8 x 128), recorded once on real tensors
+        and once on fake ones (``FakeTensorMode``): FLOPs, bytes and events
+        equal; its dot FLOPs equal to ``train_bound_ms``'s ``step_tflop``;
+        the measured median step's share of ``train_bound_ms``, beside the
+        time of the eager-dispatch bytes (each op one pass over memory);
+    (b) ``serve_static``'s decode step (4 slots, M16 ``pallas``) recorded on
+        the card and on the CPU's plain path at the same shapes: the counts
+        equal, and the kernel events equal ``build.launch_counts()`` for
+        that one eager step;
+    (c) ``analysis.check(all_paths(quick=True, device='cuda'))``: no
+        violation; ``pmm-runtime-tile`` is one mode-map launch, 0 selects;
+    (d) ``DRYRUN_CELLS`` on ``pod16x16`` on this machine's CPU (started
+        first, run beside (a)-(c)): status, FLOPs, bytes, collective bytes
+        by kind, the dominant term, peak bytes per device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.dispatch import audit_events
+    from repro_torch.analysis.hotpaths import all_paths, check as check_paths
+
+    t_start = time.perf_counter()
+    dryrun = start_dryrun_cells()
+    release()
+    out: dict = {"card": card}
+
+    # (a) the train step, real and fake
+    native = full_width_model(PRESETS["native_f32"])
+    params = params_cache(native)
+    cfg = native.cfg
+    tcfg = train_config(4)
+    step = make_train_step(native, tcfg)
+    state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    batch = put_batch_on("cuda")(data.next_batch())
+    _, real = op_cost.record_ops(step, state, batch)
+    with FakeTensorMode():
+        fmodel = full_width_model(PRESETS["native_f32"])
+        fparams = fmodel.init(0)
+        fstate = {"params": fparams, "opt": adamw.init_state(fparams, tcfg.optimizer)}
+        fbatch = {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda") for k, v in batch.items()}
+        _, fake = op_cost.record_ops(make_train_step(fmodel, tcfg), fstate, fbatch)
+    check(counted(real) == counted(fake),
+          f"cost (a): real {counted(real)} != fake {counted(fake)}")
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    # the count's bytes are eager PyTorch's, one pass over memory per op: the
+    # traffic of this implementation, which a fused step would lower, so the
+    # share is taken against train_bound_ms (the GEMMs' FLOPs and AdamW's
+    # least bytes), which no implementation can go below
+    eager = op_cost.roofline_terms(real.cost)
+    eager_ms = max(eager["t_compute_s"], eager["t_memory_s"], eager["t_collective_s"]) * 1e3
+    median = statistics.median(walls[1:])
+    hand = train_bound_ms(cfg, params, 1)
+    dot = op_cost.dot_flops(real.events)
+    check(abs(dot / 1e12 - hand["step_tflop"]) <= 1e-9 * hand["step_tflop"],
+          f"cost (a): dot FLOPs {dot:.4e} against the hand count {hand['step_tflop']} TFLOP")
+    out["a_train_native_f32"] = dict(
+        real=counted(real), fake=counted(fake), dot_tflop=dot / 1e12,
+        train_bound_step_tflop=hand["step_tflop"], bound_ms=hand["bound_ms"],
+        eager_dispatch_terms=eager, eager_dispatch_ms=eager_ms, step_ms=walls[1:],
+        step_median_ms=median, share_of_bound=hand["bound_ms"] / median)
+    del real, fake, fstate, fparams, fmodel
+    release()
+
+    # (b) serve_static's decode step on the card and on the CPU's plain path
+    policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+    model = full_width_model(policy)
+    params = params_cache(model)
+    serve_cfg = ServeConfig(batch_slots=4, max_len=96)
+    tokens = torch.randint(0, model.cfg.vocab, (4, 1), dtype=torch.int32, device="cuda")
+    per_device = {}
+    for dev in ("cuda", "cpu"):
+        m = model if dev == "cuda" else build_model(model.cfg, device="cpu")
+        p = params if dev == "cuda" else tree.map_tree(lambda x: x.cpu(), params)
+        eng = ServeEngine(m, p, config=serve_cfg)
+        active = torch.ones((4,), dtype=torch.bool, device=dev)
+        build.reset_launch_counts()
+        _, rec = op_cost.record_ops(eng._masked_step, p, tokens.to(dev), eng.state, active)
+        launches = {k: v for k, v in build.launch_counts().items() if v}
+        per_device[dev] = dict(counted(rec), kernel_events=kernel_events(rec), launches=launches)
+        del eng, rec, p, m
+    cuda_b, cpu_b = per_device["cuda"], per_device["cpu"]
+    check({k: cuda_b[k] for k in ("flops", "hbm_bytes", "events", "kernel_events")}
+          == {k: cpu_b[k] for k in ("flops", "hbm_bytes", "events", "kernel_events")},
+          f"cost (b): card {cuda_b} != CPU {cpu_b}")
+    check(cuda_b["kernel_events"] == cuda_b["launches"] and cuda_b["launches"],
+          f"cost (b): kernel events {cuda_b['kernel_events']} != launches {cuda_b['launches']}")
+    check(not cpu_b["launches"], "cost (b): the CPU arm launched a kernel")
+    out["b_decode_step_m16_pallas"] = per_device
+    release()
+
+    # (c) the analysis gate on the card
+    paths = all_paths(quick=True, device="cuda")
+    violations, names = check_paths(paths)
+    check(not violations, "cost (c): " + "; ".join(v.format() for v in violations))
+    tile = next(hp for hp in paths if hp.name == "pmm-runtime-tile")
+    build.reset_launch_counts()
+    _, rec = op_cost.record_ops(tile.fn, *tile.args)
+    stats = audit_events(rec.events)
+    launched = build.launch_counts()
+    check(stats["pallas_calls"] == 1 and stats["switches"] == 0
+          and launched["tile_matmul"] == 1 and sum(launched.values()) == 1,
+          f"cost (c): pmm-runtime-tile {stats}, launches {launched}")
+    out["c_analysis"] = dict(checked=names, violations=0, pmm_runtime_tile=stats,
+                             pmm_runtime_tile_launches=launched)
+
+    out["a_c_s"] = time.perf_counter() - t_start
+    emit("cost", **out)
+
+    # (d) the production dry-run cells
+    cells = finish_dryrun_cells(dryrun)
+    emit("cost_dryrun", card=card, cells=cells, phase_s=time.perf_counter() - t_start)
+    return dict(out, d_dryrun=cells)
+
+
 def kernels_line(checks, timing, main_counts) -> dict:
     """One entry per kernel: its numbers at the decode shape that dominates
     the serving path (every measured shape is in the ``kernels`` phase line)."""
@@ -3490,6 +3686,8 @@ def main() -> int:
         phase_train(params_cache, card)
     if "distributed" in phases:
         phase_distributed(params_cache, card)
+    if "cost" in phases:
+        phase_cost(params_cache, card)
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

@@ -37,7 +37,8 @@ import functools
 from typing import Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_global_tensor_info
 
 from repro_torch.core import limb as limb_lib
 from repro_torch.core.precision import (
@@ -49,6 +50,7 @@ from repro_torch.core.precision import (
     auto_mode,
 )
 from repro_torch.device import require_full_f32_matmul, resolve_device
+from repro_torch import oprecord
 
 Tensor = torch.Tensor
 
@@ -86,23 +88,79 @@ def _neumaier_sum(parts: Sequence[Tensor]) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _reduced(t):
+    """``t`` with its partial sums reduced (a plain tensor as it is)."""
+    if isinstance(t, DTensor) and any(isinstance(p, Partial) for p in t.placements):
+        return t.redistribute(t.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                              for p in t.placements])
+    return t
+
+
+def _aligned(a: DTensor, b: DTensor, left: str, right: str) -> tuple[DTensor, DTensor]:
+    """Per mesh dim: where the two operands are sharded on different labels,
+    ``b`` (the weight, in the port's products) is gathered, as FSDP gathers a
+    weight for its product; then a label sharded on one operand and
+    replicated on the other where it appears there is sharded on both (the
+    replicated one's part is a local slice: no traffic)."""
+    pa, pb = list(a.placements), list(b.placements)
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        if isinstance(x, Shard) and isinstance(y, Shard) and left[x.dim] != right[y.dim]:
+            pb[i] = y = Replicate()
+        if isinstance(x, Shard) and isinstance(y, Replicate) and left[x.dim] in right:
+            pb[i] = Shard(right.index(left[x.dim]))
+        elif isinstance(y, Shard) and isinstance(x, Replicate) and right[y.dim] in left:
+            pa[i] = Shard(left.index(right[y.dim]))
+    if pa != list(a.placements):
+        a = a.redistribute(a.device_mesh, pa)
+    if pb != list(b.placements):
+        b = b.redistribute(b.device_mesh, pb)
+    return a, b
+
+
 def _einsum(eq: str, a: Tensor, b: Tensor) -> Tensor:
-    """``torch.einsum(eq, a, b)``.  A DTensor ``a`` sharded on one of its
-    free dims after the first (the sequence of a sequence-parallel arch's
-    (batch, sequence, d) activations) has its first dim made a batch dim of
-    both operands (``b`` expanded, a view): ``einsum`` would otherwise
-    flatten the free dims into one, which DTensor (torch 2.11) refuses
-    where a dim other than the first of them is sharded."""
-    if isinstance(a, DTensor) and a.ndim >= 3:
-        left, rest = eq.split(",")
-        right, out = rest.split("->")
-        lead = left[0]
-        if lead in out and lead not in right and any(
-                isinstance(p, Shard) and p.dim >= 1 and left[p.dim] not in right
-                for p in a.placements):
-            return torch.einsum(f"{left},{lead}{right}->{out}", a,
-                                b.expand(a.shape[0], *b.shape))
-    return torch.einsum(eq, a, b)
+    """``torch.einsum(eq, a, b)``.  Of DTensors, on each rank's own parts:
+    partial sums are reduced first, a plain operand is read as replicated,
+    and ``_aligned`` lays the operands out so that per mesh dim both are
+    sharded on one label or neither is; the result is sharded on that
+    label, or summed over the ranks (an all-reduce) where the label is
+    contracted.  (DTensor's einsum flattens the free dims of each operand
+    into one, which torch 2.11 refuses where a dim other than the first of
+    them is sharded.)"""
+    if not (isinstance(a, DTensor) or isinstance(b, DTensor)):
+        return torch.einsum(eq, a, b)
+    left, rest = eq.split(",")
+    right, out = rest.split("->")
+    mesh = a.device_mesh if isinstance(a, DTensor) else b.device_mesh
+    # a plain operand as a replicated DTensor: its gradient is then the sum
+    # over the ranks, not this rank's part
+    a, b = (_reduced(x) if isinstance(x, DTensor) else
+            DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            for x in (a, b))
+    if a.device_mesh != b.device_mesh:
+        raise ValueError(f"einsum {eq!r} of DTensors on two meshes")
+    a, b = _aligned(a, b, left, right)
+    placements, grad_a, grad_b = [], [], []
+    for x, y in zip(a.placements, b.placements):
+        if not (isinstance(x, Shard) or isinstance(y, Shard)):
+            placements.append(Replicate())
+            grad_a.append(x)
+            grad_b.append(y)
+            continue
+        label = left[x.dim] if isinstance(x, Shard) else right[y.dim]
+        placements.append(Shard(out.index(label)) if label in out else Partial())
+        # an operand replicated on this mesh dim has as its gradient this
+        # rank's share of a sum over the other operand's sharded label
+        grad_a.append(x if isinstance(x, Shard) else Partial())
+        grad_b.append(y if isinstance(y, Shard) else Partial())
+    size = dict(zip(left, a.shape)) | dict(zip(right, b.shape))
+    shape = tuple(size[c] for c in out)
+    local = torch.einsum(eq, a.to_local(grad_placements=grad_a),
+                         b.to_local(grad_placements=grad_b))
+    # the global stride of the local result's layout (einsum may return a
+    # permuted view)
+    _, stride = compute_global_tensor_info(local, mesh, placements)
+    return _reduced(DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                                       stride=tuple(stride)))
 
 
 def _limb_einsum(
@@ -169,6 +227,7 @@ def _mode_select(mode: Tensor, branches: Sequence[Tensor]) -> Tensor:
     path clamps.  The choice is made by ``torch.where`` on the device, with
     no read-back, so it survives CUDA-graph capture — the port's
     counterpart of the reference's ``lax.switch``."""
+    oprecord.mark("switch", mode)
     m = mode.to(device=branches[0].device, dtype=torch.int32)
     out = branches[-1]
     for i in range(len(branches) - 2, -1, -1):
@@ -380,6 +439,9 @@ def mp_matmul_runtime(
             branches = [mp_matmul(a, b, m, rounding=rounding, impl=impl,
                                   block=block, device=dev) for m in F32_MODES]
         return _mode_select(selected, branches)
+    # the run-time branch on a host int: the reference's ``lax.switch`` on
+    # the same scalar, taken here on the host
+    oprecord.mark("switch")
     idx = min(max(_host_mode(selected) - 1, 0), len(F32_MODES) - 1)
     return mp_matmul(a, b, F32_MODES[idx], rounding=rounding, impl=impl,
                      block=block, device=dev)
@@ -431,6 +493,7 @@ def mp_einsum_runtime(
         else:
             branches = _limb_einsum_ladder(eq, a, b, rounding)
         return _mode_select(mode, branches)
+    oprecord.mark("switch")  # the host-int branch, as in mp_matmul_runtime
     idx = min(max(_host_mode(mode) - 1, 0), len(F32_MODES) - 1)
     return mp_einsum(eq, a, b, F32_MODES[idx], rounding=rounding, impl=impl,
                      block=block, device=dev)

@@ -197,6 +197,25 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     return x.redistribute(mesh, placements)
 
 
+def split_dim(x: torch.Tensor, dim: int, *sizes: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` reshaped into ``sizes``.  A DTensor whose
+    ``dim`` is sharded over more ranks than ``sizes[0]`` divides into (a
+    head count the model axis does not divide) has that dim gathered first,
+    as GSPMD reshards the reference's reshape; DTensor cannot split it
+    unevenly."""
+    dim = dim % x.ndim
+    if isinstance(x, DTensor):
+        ranks = 1
+        for p, n in zip(x.placements, x.device_mesh.shape):
+            if isinstance(p, Shard) and p.dim == dim:
+                ranks *= n
+        if sizes[0] % ranks:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                for p in x.placements])
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
 # ---------------------------------------------------------------------------
 # Parameter shardings (by tree-path name patterns)
 # ---------------------------------------------------------------------------
@@ -305,11 +324,23 @@ def replicated(mesh) -> NamedSharding:
 
 
 def put(tree: Any, shardings: Any) -> Any:
-    """``jax.device_put(tree, shardings)``: every leaf of ``tree`` laid out
-    by the ``NamedSharding`` at its place in ``shardings``."""
+    """``jax.device_put(tree, shardings)``: every leaf of ``tree`` (dicts,
+    lists, tuples and dataclasses of whole tensors) laid out by the
+    ``NamedSharding`` at its place in ``shardings``; a None on either side
+    leaves the value as it is."""
+    if shardings is None or tree is None:
+        return tree
+    if isinstance(shardings, NamedSharding):
+        return shardings.put(tree)
     if isinstance(tree, dict):
         return {k: put(v, shardings[k]) for k, v in tree.items()}
-    return shardings.put(tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(put(v, s) for v, s in zip(tree, shardings, strict=True))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: put(getattr(tree, f.name), getattr(shardings, f.name))
+            for f in dataclasses.fields(tree)})
+    raise TypeError(f"no layout for {type(tree).__name__}")
 
 
 # ---------------------------------------------------------------------------

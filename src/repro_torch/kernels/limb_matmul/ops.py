@@ -58,6 +58,7 @@ import torch
 from repro_torch.core.limb import limb_product_terms
 from repro_torch.kernels import build
 from repro_torch.kernels.blocking import ceil_to, clamp_block
+from repro_torch import oprecord
 
 DEFAULT_BLOCK = (128, 128, 512)
 #: the largest M the weight-streaming body serves (``rmpm::SKINNY_M_MAX``)
@@ -312,10 +313,18 @@ def limb_matmul(
         return torch.zeros((*lead, n), dtype=torch.float32, device=a2.device)
     s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k),
                        body=gemm_body(m, k))
-    if a2.is_cuda or b2.is_cuda:
-        out = _launch(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
+
+    def run():
+        if a2.is_cuda or b2.is_cuda:
+            return _launch(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
+        return limb_matmul_plain(a2, b2, k, bk=bk_, splits=s)
+
+    if oprecord.ACTIVE is None:
+        out = run()
     else:
-        out = limb_matmul_plain(a2, b2, k, bk=bk_, splits=s)
+        flops, nbytes = oprecord.gemm_work(m, kdim, n, len(limb_product_terms(k)))
+        out = oprecord.run_kernel("limb_matmul", run, (a2, b2), flops=flops, nbytes=nbytes,
+                                 dtype=torch.bfloat16)
     return out.reshape(*lead, n)
 
 
@@ -431,6 +440,14 @@ def limb_matmul_dd(
     n = b2.shape[1]
     _, (bm_, bn_, bk_) = tile_grid(m, n, kdim, bm=bm, bn=bn, bk=bk)
     s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(k))
-    if a2.is_cuda or b2.is_cuda:
-        return _launch_dd(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
-    return limb_matmul_dd_plain(a2, b2, k, bk=bk_, splits=s)
+
+    def run():
+        if a2.is_cuda or b2.is_cuda:
+            return _launch_dd(a2.contiguous(), b2.contiguous(), k, bm_, bn_, bk_, s)
+        return limb_matmul_dd_plain(a2, b2, k, bk=bk_, splits=s)
+
+    if oprecord.ACTIVE is None:
+        return run()
+    flops, nbytes = oprecord.gemm_work(m, kdim, n, len(limb_product_terms(k)), outputs=2)
+    return oprecord.run_kernel("limb_matmul_dd", run, (a2, b2), flops=flops, nbytes=nbytes,
+                              dtype=torch.bfloat16)

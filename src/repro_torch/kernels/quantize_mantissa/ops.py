@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.rounding import _ROUNDINGS, quantize_mantissa
 from repro_torch.kernels import build
+from repro_torch import oprecord
 
 _ROUNDING_CODE = {"trunc": 0, "grte": 1, "rne": 2}
 
@@ -51,8 +52,14 @@ def quantize_mantissa_op(x: torch.Tensor, keep: int, rounding: str = "grte") -> 
         raise ValueError(f"rounding must be one of {_ROUNDINGS}, got {rounding!r}")
     if keep >= 23:
         return x
-    if x.is_cuda:
-        if x.numel() == 0:
-            return x.to(torch.float32)
-        return _launch(x.to(torch.float32).contiguous(), keep, rounding)
-    return quantize_mantissa_plain(x, keep, rounding)
+    if x.is_cuda and x.numel() == 0:
+        return x.to(torch.float32)
+
+    def run():
+        if x.is_cuda:
+            return _launch(x.to(torch.float32).contiguous(), keep, rounding)
+        return quantize_mantissa_plain(x, keep, rounding)
+
+    if oprecord.ACTIVE is None:
+        return run()
+    return oprecord.run_kernel("quantize_mantissa", run, (x,), nbytes=8.0 * x.numel())

@@ -36,6 +36,7 @@ from repro_torch.kernels.limb_matmul.ops import (
     split_workspace,
     tile_grid,
 )
+from repro_torch import oprecord
 
 F32_KMAX = max(MODE_LIMBS[m] for m in F32_MODES)  # 3 limbs (M24)
 
@@ -143,11 +144,21 @@ def tile_matmul(
         )
     s = resolve_splits(splits, a2.device, m, n, kdim, bm=bm_, bn=bn_, bk=bk_, tk=k_step(kmax),
                        body=gemm_body(m, kmax))
-    if a2.is_cuda or b2.is_cuda:
-        mode_map = mode_map.to(device=a2.device, dtype=torch.int32).contiguous()
-        out = _launch(a2.contiguous(), b2.contiguous(), mode_map, kmax, bm_, bn_, bk_, s)
+
+    def run():
+        if a2.is_cuda or b2.is_cuda:
+            dev_map = mode_map.to(device=a2.device, dtype=torch.int32).contiguous()
+            return _launch(a2.contiguous(), b2.contiguous(), dev_map, kmax, bm_, bn_, bk_, s)
+        return tile_matmul_plain(a2, b2, mode_map, kmax=kmax, bm=bm_, bn=bn_, bk=bk_, splits=s)
+
+    if oprecord.ACTIVE is None:
+        out = run()
     else:
-        out = tile_matmul_plain(a2, b2, mode_map, kmax=kmax, bm=bm_, bn=bn_, bk=bk_, splits=s)
+        # the map is data: charged at kmax's passes, the most it can run
+        # (reading the map would cost a sync)
+        flops, nbytes = oprecord.gemm_work(m, kdim, n, len(limb_product_terms(kmax)))
+        out = oprecord.run_kernel("tile_matmul", run, (a2, b2, mode_map), flops=flops,
+                                 nbytes=nbytes + mode_map.numel() * 4, dtype=torch.bfloat16)
     return out.reshape(*lead, n)
 
 

@@ -108,3 +108,8 @@ def magnitude_map(a: torch.Tensor, b: torch.Tensor, budget: float, *,
         mode = torch.where(eps * mag <= abs_budget,
                            torch.tensor(limbs, dtype=torch.int32, device=mag.device), mode)
     return mode
+
+
+# The dispatch walker lives in repro_torch.analysis.dispatch; re-exported
+# here, as the reference's tile_policy re-exports its own.
+from repro_torch.analysis.dispatch import dispatch_stats  # noqa: E402,F401

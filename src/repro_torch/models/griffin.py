@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import Params, causal_conv1d, dense_init, pein
 
@@ -52,12 +53,21 @@ def rglru_init(gen: torch.Generator, cfg, *, layers: int | None = None) -> Param
     }
 
 
+def _logsigmoid(x: Tensor) -> Tensor:
+    """``F.logsigmoid``; on a DTensor, shard by shard (it is pointwise, and
+    DTensor has no rule for ``aten.log_sigmoid_forward``)."""
+    if isinstance(x, DTensor):
+        return DTensor.from_local(F.logsigmoid(x.to_local()), x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape, stride=x.stride())
+    return F.logsigmoid(x)
+
+
 def _rglru_scan(x: Tensor, r: Tensor, i: Tensor, lam: Tensor, h0: Tensor | None):
     """h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t), sequentially.
 
     x, r, i: (B, S, W); lam: (W,).  Returns (h_seq, h_last).
     """
-    log_a_base = F.logsigmoid(lam)[None, None, :]  # (1,1,W), negative
+    log_a_base = _logsigmoid(lam)[None, None, :]  # (1,1,W), negative
     log_a = _C * r * log_a_base  # (B, S, W)
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x)

@@ -24,7 +24,7 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.precision import F32_MODES, DoubleF32
 from repro_torch.core.rmpm import mp_einsum, mp_einsum_runtime, mp_matmul_runtime
 from repro_torch.device import backend_of
-from repro_torch.distributed.sharding import BATCH_AXES, constrain
+from repro_torch.distributed.sharding import BATCH_AXES, constrain, contiguous_stride, split_dim
 from repro_torch.plan import execute, plan_matmul
 
 Tensor = torch.Tensor
@@ -199,9 +199,30 @@ def _quant_rows(x: Tensor) -> tuple[Tensor, Tensor]:
 
 def _put(buf: Tensor, idx: tuple, vals: Tensor) -> Tensor:
     """Out-of-place indexed write (the ``dynamic_update_slice`` analogue)."""
+    if isinstance(buf, DTensor):
+        return _put_local(buf, idx, vals)
     out = buf.clone()
     out[idx] = vals.to(buf.dtype)
     return out
+
+
+def _put_local(buf: DTensor, idx: tuple, vals: Tensor) -> DTensor:
+    """``_put`` of a DTensor whose indexed dims are whole on every rank (a
+    KV cache: batch rows and heads sharded, positions whole): each rank
+    writes its own part, ``vals`` laid out as ``buf`` first.  (torch 2.11's
+    DTensor has no rule for ``index_put_``.)"""
+    mesh, placements = buf.device_mesh, tuple(buf.placements)
+    indexed = {d for d, i in enumerate(idx) if not (isinstance(i, slice) and i == slice(None))}
+    if any(isinstance(p, Shard) and p.dim in indexed for p in placements):
+        raise ValueError(f"_put into a DTensor sharded on an indexed dim: {placements}")
+    vals = vals.to(buf.dtype)
+    if not isinstance(vals, DTensor):
+        vals = DTensor.from_local(vals, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    out = buf.to_local().clone()
+    out[tuple(i.full_tensor() if isinstance(i, DTensor) else i for i in idx)] = (
+        vals.redistribute(mesh, placements).to_local())
+    return DTensor.from_local(out, mesh, placements, run_check=False, shape=buf.shape,
+                              stride=buf.stride())
 
 
 def kv_cache_append(cache: KVCache, k_new: Tensor, v_new: Tensor) -> KVCache:
@@ -567,7 +588,7 @@ def flash_attention(
             kv_positions < kv_len, kv_positions,
             torch.full_like(kv_positions, -1))
 
-    qg = q.reshape(b, sq, hkv, g, hd).to(torch.float32) * (hd**-0.5)
+    qg = split_dim(q, 2, hkv, g).to(torch.float32) * (hd**-0.5)
     q_offset = torch.as_tensor(q_offset, device=dev)
     # per-slot decode: q_offset (B,) -> q_pos (B, Sq); shared: (Sq,)
     q_pos = (q_offset[:, None] if q_offset.dim() else q_offset) + torch.arange(sq, device=dev)
@@ -602,8 +623,21 @@ def flash_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
 
 
+def _batch_laid_out(x, mesh, qp, batched_ndim: int):
+    """A position or offset tensor as this rank's local tensor for q laid out
+    by ``qp``: with ``batched_ndim`` dims its first is the batch, split where
+    q's rows are (the per-slot layout); otherwise it is whole."""
+    if not isinstance(x, DTensor):
+        return x
+    if x.ndim != batched_ndim:
+        return x.full_tensor()
+    return x.redistribute(mesh, [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                                 for p in qp]).to_local()
+
+
 def _flash_attention_on_shards(q, k, v, policy, *, causal: bool, window: int,
-                               chunk: int):
+                               chunk: int, q_offset=0, kv_positions=None, k_scale=None,
+                               v_scale=None):
     """``flash_attention`` of DTensor q/k/v (B, S, H, hd), each rank on its
     own shard, as GSPMD partitions the reference's: batch rows and heads are
     independent, and a rank's rows of a sequence-sharded q attend to the
@@ -633,11 +667,15 @@ def _flash_attention_on_shards(q, k, v, policy, *, causal: bool, window: int,
     # rows' share of the sum
     kv_grad = [Partial() if i in seq_dims else p for i, p in enumerate(kvp)]
     kl, vl = (x.redistribute(mesh, kvp).to_local(grad_placements=kv_grad) for x in (k, v))
+    scales = [None if x is None else x.redistribute(mesh, kvp).to_local()
+              for x in (k_scale, v_scale)]
     coord, first = mesh.get_coordinate(), 0
     for i in seq_dims:  # mesh order: the first dimension is the outer one
         first = first * sizes[i] + coord[i]
     out = flash_attention(ql, kl, vl, policy, causal=causal, window=window, chunk=chunk,
-                          q_offset=first * ql.shape[1])
+                          q_offset=_batch_laid_out(q_offset, mesh, qp, 1) + first * ql.shape[1],
+                          kv_positions=_batch_laid_out(kv_positions, mesh, kvp, 2),
+                          k_scale=scales[0], v_scale=scales[1])
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
@@ -678,10 +716,10 @@ def attention_apply(
     policy = cfg.policy
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = plinear(x, p["wq"], "qkv", policy).reshape(b, s, hq, hd)
+    q = split_dim(plinear(x, p["wq"], "qkv", policy), -1, hq, hd)
     if kv_override is None:
-        k = plinear(x, p["wk"], "qkv", policy).reshape(b, s, hkv, hd)
-        v = plinear(x, p["wv"], "qkv", policy).reshape(b, s, hkv, hd)
+        k = split_dim(plinear(x, p["wk"], "qkv", policy), -1, hkv, hd)
+        v = split_dim(plinear(x, p["wv"], "qkv", policy), -1, hkv, hd)
         if positions is None:
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
@@ -698,10 +736,11 @@ def attention_apply(
             v = constrain(v, BATCH_AXES, None, "model", None)
     else:
         enc = kv_override[0]
-        k = plinear(enc, p["wk"], "qkv", policy).reshape(b, enc.shape[1], hkv, hd)
-        v = plinear(enc, p["wv"], "qkv", policy).reshape(b, enc.shape[1], hkv, hd)
+        k = split_dim(plinear(enc, p["wk"], "qkv", policy), -1, hkv, hd)
+        v = split_dim(plinear(enc, p["wv"], "qkv", policy), -1, hkv, hd)
         causal = False
 
+    attend = _flash_attention_on_shards if isinstance(q, DTensor) else flash_attention
     if cache is not None and kv_override is None:
         q_offset = cache.length
         if isinstance(cache, PagedKVCache) and not write_pools:
@@ -714,19 +753,18 @@ def attention_apply(
             # cache may be smaller than the prompt; it keeps only the tail)
             fresh_pos = torch.arange(s, dtype=torch.int32, device=x.device)
             fresh_pos = (q_offset[:, None] if q_offset.dim() else q_offset) + fresh_pos
-            out = flash_attention(
+            out = attend(
                 q, k, v, policy, causal=causal, window=window,
                 q_offset=q_offset, kv_positions=fresh_pos, chunk=cfg.attn_chunk,
             )
         else:
             k_read, v_read, ks_read, vs_read = view or kv_view(cache)
-            out = flash_attention(
+            out = attend(
                 q, k_read, v_read, policy, causal=causal, window=window,
                 q_offset=q_offset, kv_positions=cache.pos,
                 k_scale=ks_read, v_scale=vs_read, chunk=cfg.attn_chunk,
             )
     else:
-        attend = _flash_attention_on_shards if isinstance(q, DTensor) else flash_attention
         out = attend(q, k, v, policy, causal=causal, window=window, chunk=cfg.attn_chunk)
     out = pmm(out.reshape(b, s, hq * hd), p["wo"]["w"], "out", policy)
     return out, cache
@@ -772,13 +810,26 @@ def gelu_mlp_apply(p: Params, x: Tensor, policy: PrecisionPolicy) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _pad_sequence(x: Tensor, n: int) -> Tensor:
+    """(B, S, C) -> (B, n + S, C), zeros first.  A DTensor whose sequence is
+    whole on every rank is padded shard by shard (torch 2.11's DTensor fails
+    to lay out ``F.pad``'s input)."""
+    if isinstance(x, DTensor) and not any(isinstance(p, Shard) and p.dim == 1
+                                          for p in x.placements):
+        shape = (x.shape[0], x.shape[1] + n, x.shape[2])
+        return DTensor.from_local(F.pad(x.to_local(), (0, 0, n, 0)), x.device_mesh,
+                                  x.placements, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape))
+    return F.pad(x, (0, 0, n, 0))
+
+
 def causal_conv1d(x: Tensor, w: Tensor, state: Tensor | None = None):
     """x: (B, S, C); w: (K, C) depthwise.  Returns (y, new_state) where
     state carries the trailing K-1 inputs for decode.  The K taps are summed
     in the reference's order, so the result is the reference's bit for bit."""
     ksz = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, ksz - 1, 0))
+        xp = _pad_sequence(x, ksz - 1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     s = x.shape[1]

@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor._utils import compute_global_tensor_info
 
 from repro_torch.models.layers import Params, causal_conv1d, dense_init, pein
 
@@ -61,10 +63,23 @@ def mamba2_init(gen: torch.Generator, cfg, *, layers: int | None = None) -> Para
     }
 
 
+def _cumsum(x: Tensor, dim: int) -> Tensor:
+    """``torch.cumsum``; on a DTensor whose ``dim`` is whole on every rank,
+    shard by shard (torch 2.11's DTensor has no rule for the ``aten.flip``
+    of its backward)."""
+    if isinstance(x, DTensor) and not any(isinstance(p, Shard) and p.dim == dim % x.ndim
+                                          for p in x.placements):
+        local = torch.cumsum(x.to_local(), dim)
+        _, stride = compute_global_tensor_info(local, x.device_mesh, x.placements)
+        return DTensor.from_local(local, x.device_mesh, x.placements, run_check=False,
+                                  shape=x.shape, stride=tuple(stride))
+    return torch.cumsum(x, dim)
+
+
 def _segsum(x: Tensor) -> Tensor:
     """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k] (i >= j)."""
     t = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = _cumsum(x, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
     return torch.where(mask, out, torch.full_like(out, -float("inf")))
@@ -88,7 +103,7 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, cfg, h0=None):
     cs = cmat.reshape(b, c, q, n)
 
     da = dts * a[None, None, None, :]  # (B, C, Q, H) negative
-    da_cum = torch.cumsum(da, dim=2)
+    da_cum = _cumsum(da, 2)
 
     # --- intra-chunk (quadratic, matmul-heavy) ---
     l_mat = torch.exp(_segsum(da.permute(0, 1, 3, 2)))  # (B, C, H, Q, Q)

@@ -37,6 +37,7 @@ from repro_torch.core.precision import MODE_PASSES, Mode
 PEAK_FLOPS = 989e12  # bf16 tensor-core FLOP/s
 F32_FLOPS = 67e12  # f32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12  # bytes/s
+NVLINK_BW = 900e9  # bytes/s of NVLink 4 per GPU (both directions together)
 
 F32_BYTES = 4
 BF16_BYTES = 2

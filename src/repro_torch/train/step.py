@@ -39,7 +39,7 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import tree
@@ -130,14 +130,28 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     return fn
 
 
+def _microbatch(x: Tensor, n: int, i: int) -> Tensor:
+    """Rows [i B/n, (i + 1) B/n) of ``x``.  A DTensor whose rows are sharded
+    is gathered over the mesh dims that shard them, sliced, and laid out as
+    before, so each microbatch is spread over every rank (the rows of one
+    microbatch need not divide into whole shards)."""
+    rows = x.shape[0] // n
+    if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                      for p in x.placements):
+        mesh, placements = x.device_mesh, tuple(x.placements)
+        whole = x.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 0
+                                      else p for p in placements])
+        return whole[i * rows:(i + 1) * rows].redistribute(mesh, placements)
+    return x.reshape((n, rows) + tuple(x.shape[1:]))[i]
+
+
 def _split_microbatches(batch: dict, n: int) -> list[dict]:
     """(B, ...) -> n batches of (B/n, ...), in row order."""
     for k, x in batch.items():
         if x.shape[0] % n:
             raise ValueError(f"batch[{k!r}] has {x.shape[0]} rows, not a multiple of "
                              f"accum_steps={n}")
-    return [{k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
-             for k, x in batch.items()} for i in range(n)]
+    return [{k: _microbatch(x, n, i) for k, x in batch.items()} for i in range(n)]
 
 
 def make_grad_fn(model: LanguageModel, tcfg: TrainConfig) -> Callable:

@@ -72,7 +72,10 @@ def test_the_package_has_the_modules_of_the_slice():
                  "spec", "spec.config", "spec.rollout",
                  "tree", "optim.adamw", "train.step", "train.loop", "data.pipeline",
                  "checkpoint.manager", "distributed.sharding", "launch.train",
-                 "distributed.compress", "distributed.pipeline", "launch.mesh"):
+                 "distributed.compress", "distributed.pipeline", "launch.mesh",
+                 "oprecord", "launch.op_cost", "launch.shapes", "launch.dryrun", "analysis",
+                 "analysis.__main__", "analysis.report", "analysis.lint", "analysis.dispatch",
+                 "analysis.flow", "analysis.hotpaths", "configs.paper_4x4"):
         assert f"repro_torch.{want}" in MODULES, want
 
 

@@ -11,6 +11,7 @@ nor the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -31,7 +32,15 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.policy import NATIVE_F32  # noqa: E402
 from repro_torch.distributed import compress, pipeline  # noqa: E402
-from repro_torch.distributed.sharding import NamedSharding, put, replicated  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    NamedSharding,
+    decode_state_shardings,
+    input_shardings,
+    param_shardings,
+    put,
+    replicated,
+    split_dim,
+)
 from repro_torch.launch.mesh import (  # noqa: E402
     init_distributed,
     make_local_mesh,
@@ -257,7 +266,97 @@ def pod(rank: int, inputs: dict, out: dict, d: str) -> None:
     out["unsharded_first_loss"] = float(m["loss"])
 
 
-SCENARIOS = {"step_2x2": step_2x2, "pod": pod}
+def _decode_gap(arch: str, mesh, kv_dtype: str, tokens: torch.Tensor) -> dict:
+    """A prefill of ``tokens[:, :8]`` and decode steps of the rest, one token
+    each, from the same parameters with a shared cache length: unsharded,
+    and with parameters and decode state laid out on ``mesh`` by the
+    reference's rules.  The largest logit gap over the logits' scale."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config(arch).with_policy(NATIVE_F32),
+                              kv_cache_dtype=kv_dtype)
+    model = build_model(cfg, device="cpu")
+    params = model.init(0)
+    b = tokens.shape[0]
+    chunks = [tokens[:, :8]] + [tokens[:, i:i + 1] for i in range(8, tokens.shape[1])]
+    want, state = [], model.init_decode_state(b, 32)
+    for t in chunks:
+        logits, state = model.decode_step(params, t, state)
+        want.append(logits)
+    state = model.init_decode_state(b, 32)
+    p_on = put(params, param_shardings(params, cfg, mesh))
+    s_on = put(state, decode_state_shardings(state, cfg, mesh))
+    got = []
+    with tstep.mesh_scope(mesh):
+        for t in chunks:
+            logits, s_on = model.decode_step(p_on, put(t, input_shardings(t, mesh)), s_on)
+            got.append(logits.full_tensor())
+    kv = [n for layers in s_on.caches.values() for n in layers if hasattr(n, "k")]
+    return {"gap": max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)),
+            "steps": len(got),
+            "kv_placements": sorted({str(tuple(n.k.placements)) for n in kv}),
+            "kv_dtypes": sorted({str(n.k.dtype) for n in kv}),
+            "scales": sum(n.k_scale is not None for n in kv)}
+
+
+def shardwise(rank: int, inputs: dict, out: dict, d: str) -> None:
+    """The shard-wise paths of a step over a (2, 2) ('data', 'model') mesh,
+    each against the unsharded run on the same inputs: the microbatch split
+    of a sharded batch, a step with two microbatches, split_dim's gather of
+    a head count the model axis does not divide, cached decode steps (the
+    KV writes and cached attention shard by shard, bf16 and int8 KV), and a
+    train step of the state-space and hybrid archs (their einsums, the
+    sequence pad of the causal conv, the RG-LRU's log-sigmoid)."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    batch = _batch(inputs)
+    rows = batch["tokens"].shape[0] // 2
+
+    # (a) microbatches of a sharded batch: the rows in order, each laid out
+    # as the whole batch was
+    on = tstep.laid_out(batch, mesh)
+    parts = tstep._split_microbatches(on, 2)
+    out["micro_rows"] = all(torch.equal(part[k].full_tensor(), batch[k][i * rows:(i + 1) * rows])
+                            for i, part in enumerate(parts) for k in batch)
+    out["micro_placements"] = all(tuple(part[k].placements) == tuple(on[k].placements)
+                                  for part in parts for k in batch)
+
+    # (b) a step of two microbatches, data-parallel and sequence-parallel
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(lr=LR, warmup_steps=0),
+                             accum_steps=2)
+    for arch in ("qwen1.5-0.5b", "qwen1.5-4b", "mamba2-2.7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch).with_policy(NATIVE_F32)
+        model = build_model(cfg, device="cpu")
+        params = model.init(0)
+        t = tcfg if arch.startswith("qwen") else dataclasses.replace(tcfg, accum_steps=1)
+        state = {"params": params, "opt": adamw.init_state(params, t.optimizer)}
+        _, m = tstep.make_train_step(model, t)(state, batch)
+        state_on = put(state, tstep.state_shardings(params, cfg, mesh, t))
+        _, ms = tstep.make_train_step(model, t, mesh)(state_on, batch)
+        out[f"step_{arch}"] = {
+            "accum_steps": t.accum_steps,
+            "loss": [float(m["loss"]), float(ms["loss"])],
+            "grad_norm": [float(m["grad_norm"]), float(ms["grad_norm"])],
+            "grad_gap": _grad_gap(model, t, params, state_on["params"], batch, mesh)}
+
+    # (c) split_dim: 2 heads of a dim sharded 4 ways are gathered first
+    line = make_mesh((4,), ("model",), "cpu")
+    x = torch.from_numpy(inputs["split_x"])
+    xs = NamedSharding(line, (None, ("model",))).put(x)
+    y = split_dim(xs, -1, 2, x.shape[1] // 2)
+    out["split_equal"] = bool(torch.equal(y.full_tensor(), x.reshape(x.shape[0], 2, -1)))
+    y = split_dim(xs, -1, 4, x.shape[1] // 4)  # 4 heads: split shard by shard
+    out["split4_equal"] = bool(torch.equal(y.full_tensor(), x.reshape(x.shape[0], 4, -1)))
+    out["split4_placements"] = str(tuple(y.placements))
+
+    # (d) cached decode, shared length: bf16 and int8 KV, and the hybrid's
+    # local-window cache and recurrent states
+    tokens = batch["tokens"][:4, :12]
+    out["decode_qwen_bf16"] = _decode_gap("qwen1.5-0.5b", mesh, "bfloat16", tokens)
+    out["decode_qwen_int8"] = _decode_gap("qwen1.5-0.5b", mesh, "int8", tokens)
+    out["decode_rg_bf16"] = _decode_gap("recurrentgemma-9b", mesh, "bfloat16", tokens)
+
+
+SCENARIOS = {"step_2x2": step_2x2, "pod": pod, "shardwise": shardwise}
 
 
 def main() -> None:

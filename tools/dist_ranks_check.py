@@ -37,7 +37,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 WORLD = 4
-SCENARIOS = ("step_2x2", "pod")
+SCENARIOS = ("step_2x2", "pod", "shardwise")
 #: the pipeline's stages, microbatches, rows and width (as the tests')
 S, M, B, D = 4, 6, 2, 16
 
@@ -60,6 +60,7 @@ def make_inputs() -> dict:
         "r2_pod1": (rng.standard_normal((24, 40)) * 0.01).astype(np.float32),
         "pipe_w": (rng.standard_normal((S, D, D)) * 0.3).astype(np.float32),
         "pipe_x": rng.standard_normal((M, B, D)).astype(np.float32),
+        "split_x": rng.standard_normal((6, 64)).astype(np.float32),
     }
     inputs.update({f"params/{k}": v.numpy() for k, v in _flatten(params).items()})
     return inputs
