@@ -10,10 +10,12 @@ each against its plain PyTorch version on the card at the shapes its path
 gives it (the limb, mode-map and double-f32 kernels at the K split
 ``split_k`` plans, which it prints per shape, and unsplit; the limb and
 mode-map kernels through their weight-streaming body at M <= 16 — also on
-misaligned operands and captured in a CUDA graph — and their tiled body
-above), times them beside their bound (each row names its ``path`` and
-``share_of_bound``; ptxas's registers, spills and shared memory of every
-weight-streaming instantiation go into the ``kernels`` line), then
+misaligned operands and captured in a CUDA graph — and their tensor-core
+tile body above, at M in ``MMA_ROWS`` over every held (K, N), ragged, on
+misaligned operands and under 16 x 16 map tiles), times them beside their
+bound (each row names its ``path`` and ``share_of_bound``; ptxas's
+registers, spills and shared memory of every weight-streaming and
+tensor-core tile instantiation go into the ``kernels`` line), then
 serves ``qwen1.5-0.5b`` at
 full width (seed-made weights) through ``repro_torch.serve.ServeEngine`` in
 four configurations, runs the autotuner on the card and plans from its
@@ -182,6 +184,10 @@ ARCH = "qwen1.5-0.5b"
 MAIN_KN = ((1024, 1024), (1024, 2816), (2816, 1024))
 #: M of the decode step (slots) and of a prefill (longest prompt)
 MAIN_M = (4, 48)
+#: M > 16 rows the tensor-core tile body is held at over every held (K, N):
+#: the first row past the skinny body, Whisper's ``apply`` decoder, a
+#: prefill, one past a 64-row block, InternVL2's patch rows, Whisper's frames
+MMA_ROWS = (17, 23, 48, 65, 264, 1500)
 #: matmul kernels vs their plain versions: max-abs error over result scale
 #: (the bound the reference holds its own kernels to)
 MATMUL_TOL = 2e-6
@@ -490,13 +496,17 @@ def check_kernels(gen) -> dict:
                 n_cases += 1
     # the serving shapes at the default blocks, then ragged split layouts:
     # bk = 720 (not a multiple of TK = 64) puts a split boundary inside the
-    # ragged last slab of K = 2816; bk = 16 < TK makes every step a slab (at
-    # M = 17 in the tiled body, at M = 3 and 16 in the skinny body, whose
-    # 16-column map tiles cut its 64-column block); then operands whose
-    # storage starts 4 bytes past a 16-byte boundary (the 4-byte copies)
+    # ragged last slab of K = 2816 (in both ladder bodies); bk = 16 < TK
+    # makes every step a slab (at M = 3 and 16 in the skinny body, whose
+    # 16-column map tiles cut its 64-column block, and at M = 17 and 70 in
+    # the tensor-core tile body, whose 64 x 128 block they cut too); then
+    # operands whose storage starts 4 bytes past a 16-byte boundary (the
+    # 4-byte copies) in both ladder bodies
     cases = [(m, k, n, {}, False) for m, k, n in shapes] + [
-        (4, 2816, 1024, dict(bk=720), False), (17, 33, 9, tiny, False),
-        (3, 33, 9, tiny, False), (16, 33, 9, tiny, False), (4, 1024, 2816, {}, True)]
+        (4, 2816, 1024, dict(bk=720), False), (48, 2816, 1024, dict(bk=720), False),
+        (17, 33, 9, tiny, False), (70, 300, 200, tiny, False),
+        (3, 33, 9, tiny, False), (16, 33, 9, tiny, False), (4, 1024, 2816, {}, True),
+        (48, 1024, 2816, {}, True), (65, 300, 200, tiny, True)]
     for m, k, n, blk, misaligned in cases:
         rand = _rand_misaligned if misaligned else _rand
         a, b = rand(gen, m, k), rand(gen, k, n)
@@ -588,6 +598,8 @@ def check_kernels(gen) -> dict:
              f"{(m, k, n)} map{tuple(grid[:2])} S={s}")
         n_cases += 1
         del a, b
+    n_cases += check_mma_rows(gen, gen_cpu, hold, splits,
+                              {c[:3] for c in cases} | set(family_shapes))
     n_cases += captured_equals_eager(gen, gen_cpu)
     # a finer map grid than the default, so one launch holds many map tiles
     a, b = _rand(gen, 48, 1024), _rand(gen, 1024, 1024)
@@ -611,6 +623,49 @@ def check_kernels(gen) -> dict:
     return {"cases": n_cases + 4, "max_rel_err": worst, "max_abs_err": worst_abs,
             "ladder_rel_err": ladder, "splits": splits,
             "unsplit_vs_split_rel_err": unsplit_vs_split}
+
+
+def check_mma_rows(gen, gen_cpu, hold, splits: dict, done: set) -> int:
+    """The tensor-core tile body at every M of ``MMA_ROWS`` over every held
+    (K, N) not checked already (``done``): k = 2 and 3 (and 1 up to M = 65)
+    against the plain version at the planned split, a second call bitwise,
+    uniform map == limb kernel and runtime (host int, device scalar) ==
+    static bitwise, one mixed 2-D map against its plain version.  Records
+    each shape's split in ``splits``; returns the number of comparisons."""
+    n_cases = 0
+    kns = sorted(set(MAIN_KN) | set(HYBRID_KN)
+                 | {kn for _, kns in FAMILY_SHAPES.values() for kn in kns})
+    for m, (k, n) in itertools.product(MMA_ROWS, kns):
+        if (m, k, n) in done:
+            continue
+        check(gemm_body(m, 3) == "mma", f"{(m, k, n)} does not run the tensor-core tile body")
+        a, b = _rand(gen, m, k), _rand(gen, k, n)
+        grid, (bm, bn, bk) = tile_grid(m, n, k)
+        s = planned_splits(m, k, n)
+        splits[f"{m}x{k}x{n}"] = s
+        for limbs in (1, 2, 3) if m <= 65 else (2, 3):
+            got = limb_matmul(a, b, limbs)
+            again = limb_matmul(a, b, limbs)
+            uni = tile_matmul_mode(a, b, Mode(limbs))
+            rt_host = tile_matmul_runtime(a, b, limbs)
+            rt_dev = tile_matmul_runtime(
+                a, b, torch.tensor(limbs, dtype=torch.int32, device="cuda"))
+            torch.cuda.synchronize()
+            what = f"{(m, k, n)} k={limbs}"
+            check(torch.equal(got, again), f"two limb_matmul calls differ at {what}")
+            hold("limb_matmul", got, limb_matmul_plain(a, b, limbs, bk=bk, splits=s),
+                 f"{what} S={s}")
+            check(torch.equal(uni, got), f"uniform map != limb kernel at {what}")
+            check(torch.equal(rt_host, uni), f"runtime(host int) != static at {what}")
+            check(torch.equal(rt_dev, uni), f"runtime(device scalar) != static at {what}")
+            n_cases += 5
+        mode_map = _mixed_map(grid[:2], gen_cpu)
+        hold("tile_matmul", tile_matmul(a, b, mode_map),
+             tile_matmul_plain(a, b, mode_map, kmax=3, bm=bm, bn=bn, bk=bk, splits=s),
+             f"{(m, k, n)} map{tuple(grid[:2])} S={s}")
+        n_cases += 1
+        del a, b
+    return n_cases
 
 
 def captured_equals_eager(gen, gen_cpu) -> int:
@@ -650,8 +705,8 @@ def captured_equals_eager(gen, gen_cpu) -> int:
 
 def _rand_misaligned(gen, *shape):
     """A contiguous operand whose storage starts 4 bytes past a 16-byte
-    boundary: the double-f32 kernel and the skinny body must take their
-    4-byte load and copy paths."""
+    boundary: the double-f32 kernel and the skinny and tensor-core tile
+    bodies must take their 4-byte load and copy paths."""
     n = math.prod(shape)
     x = torch.empty(n + 1, device="cuda", dtype=torch.float32)[1:].view(*shape)
     x.copy_(_rand(gen, *shape))
@@ -941,21 +996,25 @@ def header_constants() -> dict[str, int]:
     return consts
 
 
-def skinny_ptxas(log: str) -> list[dict]:
+def body_ptxas(log: str, body: str) -> list[dict]:
     """ptxas's registers, spills and static shared memory for each
-    weight-streaming instantiation (limb and map kernel, KMAX 1-3, NF 1-2),
-    beside the dynamic shared memory each launch asks for
-    (``rmpm::SK_SMEM_BYTES``)."""
-    ring = header_constants()["SK_SMEM_BYTES"]
+    instantiation of one ladder body of the limb and map kernels (``body``:
+    ``"skinny"``, KMAX 1-3 x NF 1-2, or ``"mma"``, KMAX 1-3), beside the
+    dynamic shared memory each launch asks for (``rmpm::SK_SMEM_BYTES``,
+    ``rmpm::MM_SMEM_BYTES``)."""
+    ring = header_constants()["SK_SMEM_BYTES" if body == "skinny" else "MM_SMEM_BYTES"]
+    pattern = re.compile(rf"(limb|tile)_matmul_{body}_kernelILi(\d)E(?:Li(\d)E)?")
     out, cur = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            kind = re.search(r"(limb|tile)_matmul_skinny_kernelILi(\d)ELi(\d)E", entry.group(1))
+            kind = pattern.search(entry.group(1))
             cur = None
             if kind:
                 cur = dict(kernel=f"{kind.group(1)}_matmul", kmax=int(kind.group(2)),
-                           nf=int(kind.group(3)), dynamic_smem_bytes=ring)
+                           dynamic_smem_bytes=ring)
+                if body == "skinny":
+                    cur["nf"] = int(kind.group(3))
                 out.append(cur)
         elif cur is not None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -986,9 +1045,14 @@ def phase_kernels(gen) -> tuple[dict, dict]:
         row["path"] = ("wide" if row["kernel"] == "limb_matmul_dd"
                        else gemm_body(row["m"], row["limbs"])
                        if row["kernel"] in ("limb_matmul", "tile_matmul") else None)
-    checks["ptxas_skinny"] = skinny_ptxas(build.BUILD_LOG)
+    checks["ptxas_skinny"] = body_ptxas(build.BUILD_LOG, "skinny")
     check(len(checks["ptxas_skinny"]) == 12,
           f"{len(checks['ptxas_skinny'])} skinny instantiations in ptxas's log, not 12")
+    checks["ptxas_mma"] = body_ptxas(build.BUILD_LOG, "mma")
+    check(len(checks["ptxas_mma"]) == 6,
+          f"{len(checks['ptxas_mma'])} tensor-core tile instantiations in ptxas's log, not 6")
+    spilled = [p for p in checks["ptxas_mma"] if p["spill_stores"] or p["spill_loads"]]
+    check(not spilled, f"tensor-core tile instantiations spill: {spilled}")
     check(build.BUILD_COUNT == 1, "kernels were built more than once")
     # ptxas -v per kernel: entry name, then registers / shared memory / spills
     ptxas = [ln.split(":", 1)[-1].strip() for ln in build.BUILD_LOG.splitlines()
@@ -2814,7 +2878,7 @@ def phase_multimodal(params_cache):
         toks, step_logits = greedy_decode(model, params, prompt, MM_NEW, max_len, **extra)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        launches = build.launch_counts()
+        launches, body_launches = build.launch_counts(), build.body_launch_counts()
         seq = torch.cat([prompt, toks[:, :-1]], 1)
         batch = {"tokens": seq, **extra}
         with torch.no_grad():
@@ -2826,12 +2890,17 @@ def phase_multimodal(params_cache):
         gap = float((full - step_logits).abs().max() / full.abs().max())
         check(gap <= 2.0**-8, f"multimodal {arch}: apply vs prefill + steps {gap:.3e}")
         check(launches["limb_matmul"] > 0, f"multimodal {arch}: the limb kernel launched no time")
+        # the encoder's frames and the patch rows (M > 16) run the tensor-core
+        # tile body, the decode steps (M = 1) the skinny one
+        check(body_launches["mma"] > 0 and body_launches["skinny"] > 0,
+              f"multimodal {arch}: launches by body {body_launches}")
         out[arch] = dict(family=c.family, layers=c.n_layers, encoder_layers=c.n_encoder_layers,
                          d_model=c.d_model, vocab=c.vocab, param_gb=param_gb(params),
                          extra_rows=(WHISPER_FRAMES if c.family == "encdec"
                                      else c.n_vision_tokens),
                          tokens=toks[0].tolist(), apply_vs_steps_gap_over_scale=gap,
-                         tolerance=2.0**-8, launches=launches, decode_s=decode_s,
+                         tolerance=2.0**-8, launches=launches, body_launches=body_launches,
+                         decode_s=decode_s,
                          peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         for k, v in launches.items():
             counts[k] = counts.get(k, 0) + v
@@ -3604,9 +3673,10 @@ def kernels_line(checks, timing, main_counts) -> dict:
                                          "ms", "bound_ms", "bound_by", "share_of_bound",
                                          "plain_ms", "library_ms")}
                 for r in family]
-        skinny = [p for p in checks["ptxas_skinny"] if p["kernel"] == name]
-        if skinny:
-            entry["ptxas_skinny"] = skinny
+        for body in ("skinny", "mma"):
+            rows_ = [p for p in checks[f"ptxas_{body}"] if p["kernel"] == name]
+            if rows_:
+                entry[f"ptxas_{body}"] = rows_
         runtime = [r for r in at if r.get("via") == "tile_matmul_runtime"]
         if runtime:
             entry.update(runtime_ms=runtime[0]["ms"], runtime_enqueue_ms=runtime[0]["enqueue_ms"])

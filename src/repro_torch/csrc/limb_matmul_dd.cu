@@ -57,8 +57,8 @@ int launch(const float* a, const float* b, float* hi, float* lo, float* ws,
   if (!rmpm::splits_ok(splits, ws, k, bk, rmpm::Tiling<KMAX>::TK))
     return (int)cudaErrorInvalidValue;
   const long long mn = (long long)m * n;
-  limb_matmul_dd_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
-                                rmpm::THREADS, 0, stream>>>(
+  const dim3 grid = rmpm::body_grid<rmpm::TM, rmpm::TN>(m, n, bm, bn, splits);
+  limb_matmul_dd_kernel<KMAX><<<grid, rmpm::THREADS, 0, stream>>>(
       a, b, splits > 1 ? ws : hi, splits > 1 ? ws + splits * mn : lo, m, n, k,
       bm, bn, bk);
   return rmpm::finish_splits(hi, ws, m, n, splits, stream, lo);

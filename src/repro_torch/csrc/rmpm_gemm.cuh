@@ -7,23 +7,28 @@
 // subtraction; limbs never touch device memory), and the retained Karatsuba
 // products  a_limb[ti] x b_limb[tj],  ti + tj < k_tile,  run as bf16 x bf16
 // -> f32 tensor-core MMAs, high-order (small-magnitude) terms first — the
-// term order of `limb_product_terms`.  Two device bodies do it:
+// term order of `limb_product_terms`.  Three device bodies do it:
 //
 //  * `rmpm_skinny_body<KMAX, NF>` — the weight-streaming body, for the limb
 //    and mode-map kernels at M <= SKINNY_M_MAX (16) and KMAX <= 3: every
-//    decode step of the serving path.
-//  * `rmpm_gemm_body<KMAX, DD>` — the tiled body, for every other launch:
-//    M > 16, the limb kernel at 4-6 limbs, and the double-f32 kernel (DD) at
-//    every M.
+//    decode step of the serving path.  Bound: the weight's bytes.
+//  * `rmpm_mma_body<KMAX>` — the tensor-core tile body, for the limb and
+//    mode-map kernels at M > 16 and KMAX <= 3: every prefill, Whisper's
+//    encoder frames and `apply` decoder, InternVL2's patch rows, the
+//    planner's and tuner's square shapes.  Bound: the weight's bytes up to
+//    M of about a hundred, the retained MMAs above.
+//  * `rmpm_gemm_body<KMAX, DD>` — the tiled body, for the limb kernel at
+//    4-6 limbs and the double-f32 kernel (DD) at every M.  Bound: a fixed
+//    cost per K step and, for DD, the issue of its TwoSum folds.
 //
 // Which body runs depends on M only (and, for the limb kernel, on whether k
-// is above the f32 ladder's three limbs), never on the mode: a uniform map
-// at mode m and the limb kernel at k = m run the same body, the same K walk
-// and the same term order, so they give the same bits — the contract the
-// TPU kernels hold by construction — and so does a run-time mode against a
-// static one.
+// is above the f32 ladder's three limbs: `use_skinny`, `use_mma`), never on
+// the mode: a uniform map at mode m and the limb kernel at k = m run the
+// same body, the same K walk and the same term order, so they give the same
+// bits — the contract the TPU kernels hold by construction — and so does a
+// run-time mode against a static one.
 //
-// What replaces what (TPU -> Hopper), in both bodies:
+// What replaces what (TPU -> Hopper), in every body:
 //  * the sequential K grid with an accumulator carried in scratch memory
 //    becomes a loop over K inside the thread block, cut into S splits that
 //    run as separate thread blocks (Split-K below);
@@ -59,8 +64,8 @@
 // which would bias a long chain.  So each term's products over one K step of
 // TK = 64 (32 above three limbs) go into a fresh fragment, and that partial
 // sum is then added into the running f32 accumulator by the CUDA cores with
-// round-to-nearest: the long chain over K is ordinary f32 summation.  Both
-// bodies fold at the same grain, so the plain versions describe both.
+// round-to-nearest: the long chain over K is ordinary f32 summation.  Every
+// body folds at the same grain, so the plain versions describe them all.
 //
 // The limb subtraction r - float(bf16(r)) is exact in f32 (the difference
 // of a float and its own leading bits is representable), so it cannot be
@@ -100,25 +105,74 @@
 //  * passes one barrier a K step, which both publishes the step's tiles and
 //    frees the stage the next copies refill.
 //
-// The tiled body keeps, for M > 16 and the double-f32 kernel: a TM x TN =
-// 32 x 32 thread-block tile of 16 x 16 wmma fragments, one TK-deep register
-// prefetch in flight during the MMAs, and the peel into limb planes.  There
-// a block's fixed cost per K step (two barriers, the peel) and, for the DD
-// variant, the issue of its TwoSum folds (56 f32 adds a term and a step in
-// each thread) bound it.  A cp.async ring of three or four operand stages in
-// place of the DD prefetch timed no faster for the DD kernel (PERF.md;
-// `tools/dd_variants.py` rebuilds it as a variant), because the TwoSum
-// folds, not the loads, bound it.  Measured times stand beside the bound in
-// PERF.md.
+// The tensor-core tile body serves M > 16.  The tiled body held it at
+// 0.03-0.24 of its bound there: its 32 x 32 tile fetched each weight element
+// ceil(M/32) times (47 at M = 1500) and each activation element N/32 times,
+// left two of four warps idle on a 16-row remainder, loaded one f32 element
+// a thread with one K step in flight, and ran the map kernel's terms under a
+// run-time count.  The body instead
+//  * covers MM_TM x MM_TN = 64 x 128 outputs a block with eight warps of
+//    32 x 32, each 2 x 4 `mma.sync.m16n8k16` fragments (bf16 in, f32 out).
+//    At M <= 64 one row block covers all of M, so the weight streams once
+//    a split, as in the skinny body; at M = 1500 each weight element is
+//    fetched 24 times and each activation element N/128 times;
+//  * streams raw f32 tiles of A (64 x 64) and B (64 x 128) into a ring of
+//    MM_STAGES = 3 stages of dynamic shared memory with the skinny body's
+//    `cp.async` copies (16 bytes, or 4 bytes with zero fill where the
+//    operand is not 16-byte aligned): two K steps in flight;
+//  * peels each step ONCE a block into three bf16 limb planes in shared
+//    memory (`peel4`: float4 reads of the ring, 8-byte stores a limb), and
+//    the warps read their fragments from the planes with `ldmatrix` (rows
+//    padded so that an 8 x 8 read meets no bank conflict).  The ring and
+//    the planes take 222 KB of the 227 a block may use: one block an SM.
+//    Peeling in registers at fragment load instead, as the skinny body
+//    does, with one barrier a step, has each warp peel its own fragments (A
+//    four times a block, B twice) and read them as f32: with eight warps an
+//    SM that ran at 0.09-0.14 of the bound at M = 1500 (PERF.md);
+//  * passes two barriers a K step: one publishes the step's raw tiles and
+//    frees the planes and the stage the next copies refill, one publishes
+//    the planes.  One barrier would need the planes double-buffered, and
+//    two sets of three planes beside a ring with two steps in flight do not
+//    fit the 227 KB; with two sets, B's ring cut to one step in flight and
+//    A's tile prefetched into registers, a one-barrier variant timed
+//    0.98-1.14x this body (PERF.md), slower where the bytes bound it;
+//  * reads each limb's fragments once a k16 slice and runs every retained
+//    term on them, each term's four k16 MMAs over the step into a fresh
+//    fragment that is then folded: the terms' partials of a 32 x 32 warp
+//    tile take 96 registers at two limbs, so at three (192) the warp runs
+//    its tile as two 32 x 16 halves.  Reloading the fragments for each term
+//    (one fragment of partials at a time) would multiply the warps'
+//    `ldmatrix` reads, a large share of the step's shared-memory traffic
+//    beside the copies and the peel.  The peel and the terms of 1, 2 and 3
+//    limbs are fully unrolled (`mma_step<KT>`): the mode-map kernel
+//    branches on its map entry around them (`mma_step_upto`), so a uniform
+//    map runs the limb kernel's instructions;
+//  * stores its fragments straight from registers (float2 where the row
+//    and the output allow it).
+// `wgmma` is not used: its 64 x 128 accumulator takes 64 registers a thread
+// a term, and the fold grain (a fresh accumulator a term and a step, added
+// with round-to-nearest) with its asynchronous completion and the async
+// proxy's fences is a larger step than this redesign; the planes it would
+// read are these.  Measured times stand beside the bound in PERF.md.
+//
+// The tiled body keeps, for the limb kernel at 4-6 limbs and the double-f32
+// kernel: a TM x TN = 32 x 32 thread-block tile of 16 x 16 wmma fragments,
+// one TK-deep register prefetch in flight during the MMAs, and the peel
+// into limb planes.  There a block's fixed cost per K step (two barriers,
+// the peel) and, for the DD variant, the issue of its TwoSum folds (56 f32
+// adds a term and a step in each thread) bound it.  A cp.async ring of
+// three or four operand stages in place of the DD prefetch timed no faster
+// for the DD kernel (PERF.md; `tools/dd_variants.py` rebuilds it as a
+// variant), because the TwoSum folds, not the loads, bound it.
 //
 // The DD load path.  A thread loads and peels chunks of four consecutive
 // elements: one 16-byte load when the operand allows it (16-byte aligned
 // base, row length and bk or bn multiples of four: `vec_a` / `vec_b`), else
 // up to four 4-byte loads, with elements out of range zero; `peel4` turns a
 // chunk into its limbs with two bf16x2 conversions and one 8-byte store a
-// limb.  The tiled body's limb and mode-map instantiations (M > 16) keep one
-// element a thread.  Same limbs, same terms folded in the same order, so the
-// load path changes no bit.
+// limb.  The tiled body's limb instantiations (4-6 limbs) keep one element
+// a thread.  Same limbs, same terms folded in the same order, so the load
+// path changes no bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -169,6 +223,37 @@ static_assert(SK_TK % 16 == 0 && SK_TM == 16, "k16 MMA steps, two n8 fragments")
 static_assert(SK_BLOCKS_PER_SM * (SK_SMEM_BYTES + 1024) <= 228 * 1024,
               "the ring leaves room for SK_BLOCKS_PER_SM blocks an SM");
 
+// The tensor-core tile body's geometry (see the top of this file).
+constexpr int MM_TM = 64;           // rows a block covers
+constexpr int MM_TN = 128;          // columns a block covers
+constexpr int MM_TK = 64;           // K step: the fold grain, as Tiling<1..3>::TK
+constexpr int MM_WARPS_M = 2;       // warps along M, 32 rows each: two m16 fragments
+constexpr int MM_WARPS_N = 4;       // warps along N, 32 columns each: four n8 fragments
+constexpr int MM_THREADS = 32 * MM_WARPS_M * MM_WARPS_N;
+constexpr int MM_STAGES = 3;        // raw ring stages: MM_STAGES - 1 steps in flight
+constexpr int MM_LIMBS = 3;         // limb planes: the f32 ladder's most limbs
+constexpr int MM_BLOCKS_PER_SM = 1;  // ring and planes take an SM's shared memory
+// A ring stage holds A's MM_TM x MM_TK and B's MM_TK x MM_TN raw f32 tiles
+// unpadded (the copies and the peel's float4 reads take whole rows).  A limb
+// plane holds one limb of both tiles as bf16, rows padded by 8 elements: at
+// 144 and 272 bytes a row, the eight rows of an `ldmatrix` 8 x 8 read fall
+// in eight distinct 16-byte bank groups.
+constexpr int MM_STAGE_FLOATS = MM_TM * MM_TK + MM_TK * MM_TN;
+constexpr int MM_A_PL = MM_TK + 8;  // bf16 row stride of A's plane
+constexpr int MM_B_PL = MM_TN + 8;  // bf16 row stride of B's plane
+constexpr int MM_PLANE_ELEMS = MM_TM * MM_A_PL + MM_TK * MM_B_PL;  // bf16 a limb
+// dynamic shared memory: the ring, then the planes
+constexpr int MM_SMEM_BYTES = MM_STAGES * MM_STAGE_FLOATS * 4 + MM_LIMBS * MM_PLANE_ELEMS * 2;
+static_assert(MM_TM == 32 * MM_WARPS_M && MM_TN == 32 * MM_WARPS_N, "32 x 32 a warp");
+static_assert(MM_TK % 16 == 0 && MM_A_PL % 8 == 0 && MM_B_PL % 8 == 0 &&
+                  (MM_STAGES * MM_STAGE_FLOATS) % 4 == 0 && MM_PLANE_ELEMS % 8 == 0,
+              "k16 MMA steps; 16-byte rows, stages and planes");
+// a block may use 227 KB; the blocks an SM holds at once, their rings and
+// planes and 1 KB each the runtime keeps, fit its 228 KB
+static_assert(MM_SMEM_BYTES <= 227 * 1024, "ring and planes fit one block's shared memory");
+static_assert(MM_BLOCKS_PER_SM * (MM_SMEM_BYTES + 1024) <= 228 * 1024,
+              "ring and planes leave room for MM_BLOCKS_PER_SM blocks an SM");
+
 // cp.async from global to shared memory: `src_bytes` of the `bytes` are
 // read, the rest of the destination is zero filled.  16 bytes go as .cg
 // (L2 only), 4 bytes as .ca; the source must be aligned to `bytes`.
@@ -191,6 +276,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Copy the first `valid` of the four floats at src to dst and zero the rest:
+// one 16-byte copy when `vec` (src then 16-byte aligned), else four 4-byte
+// copies; `base`, always a valid address, stands in when none is read.
+__device__ __forceinline__ void cp_async_chunk4(float* dst, const float* src, int valid,
+                                                bool vec, const float* base) {
+  if (vec) {
+    cp_async16(dst, valid > 0 ? src : base, 4 * valid);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : base, e < valid ? 4 : 0);
+  }
+}
+
+// Whether chunks of four of a row-major operand are 16-byte aligned: an
+// aligned base, and rows (`ld`) and chunk starts (multiples of `blk`) at
+// multiples of four floats.
+__device__ __forceinline__ bool chunks16(const float* p, int ld, int blk) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) | (ld & 3) | (blk & 3)) == 0;
+}
+
 // d (16 x 8 f32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col-major):
 // the PTX fragment layouts, lane = 4 * g + t: a holds rows g and g + 8,
 // columns 2t, 2t + 1 (+ 8); b rows 2t, 2t + 1 (+ 8), column g; d rows g and
@@ -202,6 +307,22 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The four 8 x 8 bf16 matrices whose rows lanes 8j .. 8j + 7 point at: lane
+// 4g + t receives row g, elements 2t and 2t + 1 of matrix j in r[j] — with
+// `trans`, column g, elements of rows 2t and 2t + 1.  Rows are 16 bytes,
+// 16-byte aligned.  The "memory" clobber keeps the reads after the barrier
+// that publishes them.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
 }
 
 // Peel two f32 values (x at the lower K index) into KMAX bf16x2 limbs,
@@ -521,7 +642,7 @@ __device__ __forceinline__ void rmpm_gemm_body(
 // same arguments, K walk, split ranges, map lookup, terms, term order and
 // fold grain as `rmpm_gemm_body`; a block covers SK_TM x SK_TN of ONE map
 // tile, and its SK_THREADS threads run with SK_SMEM_BYTES of dynamic shared
-// memory (allowed once per kernel by `allow_skinny`).  NF = 1 serves
+// memory (allowed once per kernel by `allow_smem`).  NF = 1 serves
 // M <= 8 with one n8 activation fragment, NF = 2 serves M <= 16.
 template <int KMAX, int NF>
 __device__ __forceinline__ void rmpm_skinny_body(
@@ -558,20 +679,10 @@ __device__ __forceinline__ void rmpm_skinny_body(
   float* const out = C + (long long)blockIdx.z * M * N;
   const long long e_map = (long long)ti_map * gn + tj_map;
 
-  // 16-byte copies need 16-byte-aligned chunks: an aligned base, and rows
-  // and chunk starts (k0 a multiple of bk, col0 of bn) at multiples of 4
-  const bool vec_a = ((reinterpret_cast<uintptr_t>(A) & 15) | (K & 3) | (bk & 3)) == 0;
-  const bool vec_b = ((reinterpret_cast<uintptr_t>(B) & 15) | (N & 3) | (bn & 3)) == 0;
-  // Copy the first `valid` of the four elements at src to dst, zero the
-  // rest; `base`, always a valid address, stands in when none is read.
-  auto copy4 = [&](float* dst, const float* src, int valid, bool vec, const float* base) {
-    if (vec) {
-      cp_async16(dst, valid > 0 ? src : base, 4 * valid);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : base, e < valid ? 4 : 0);
-    }
-  };
+  // 16-byte copies need 16-byte-aligned chunks (k0 a multiple of bk, col0
+  // of bn)
+  const bool vec_a = chunks16(A, K, bk);
+  const bool vec_b = chunks16(B, N, bn);
   // Issue step t's copies into ring stage st: B's SK_TK x SK_TN tile, then
   // A's SK_TM x SK_TK tile, in chunks of four; out of range is zero, which
   // adds exact zeros to the products.
@@ -586,14 +697,15 @@ __device__ __forceinline__ void rmpm_skinny_body(
       const int r = q / (SK_TN / 4), c = (q % (SK_TN / 4)) * 4;
       const int k = k0 + r;
       const int valid = k < k_end ? max(0, min(4, col_end - (col0 + c))) : 0;
-      copy4(sb + r * SK_B_LD + c, B + (long long)k * N + col0 + c, valid, vec_b, B);
+      cp_async_chunk4(sb + r * SK_B_LD + c, B + (long long)k * N + col0 + c, valid, vec_b, B);
     }
 #pragma unroll
     for (int i = 0; i < SK_TM * SK_TK / 4 / SK_THREADS; ++i) {
       const int q = tid + i * SK_THREADS;
       const int r = q / (SK_TK / 4), c = (q % (SK_TK / 4)) * 4;
       const int valid = row0 + r < row_end ? max(0, min(4, k_end - (k0 + c))) : 0;
-      copy4(sa + r * SK_A_LD + c, A + (long long)(row0 + r) * K + k0 + c, valid, vec_a, A);
+      cp_async_chunk4(sa + r * SK_A_LD + c, A + (long long)(row0 + r) * K + k0 + c, valid, vec_a,
+                      A);
     }
   };
 
@@ -707,38 +819,281 @@ __device__ __forceinline__ void rmpm_skinny_body(
   }
 }
 
-// Grid of the skinny body: one block per SK_TM x SK_TN piece of each map
-// tile, once for each of `splits` K splits.
-inline dim3 skinny_grid(int M, int N, int bm, int bn, int splits) {
+// One K step of the tensor-core tile body at KT limbs.  First the block
+// peels the step's raw tiles (ring stage `raw`) into KT limb planes
+// (`planes`), each thread four consecutive elements at a time (`peel4`),
+// and passes a barrier; then every warp that has outputs runs the retained
+// terms.  Each term's products over the step go into a fresh fragment of
+// their own (k16 MMAs in K order, operands by `ldmatrix` from the planes),
+// and the fragments are then folded into acc with round-to-nearest, high
+// order first.  acc[mi][nj] is the m16 x n8 fragment at rows wm + 16 mi + g
+// (+ 8), columns wn + 8 nj + 2t (+ 1) of the block.
+template <int KT>
+__device__ __forceinline__ void mma_step(const float* __restrict__ raw,
+                                         __nv_bfloat16* __restrict__ planes,
+                                         float (&acc)[2][4][4], bool idle, int wm, int wn) {
+  const int tid = threadIdx.x, lane = tid & 31;
+#pragma unroll
+  for (int i = 0; i < MM_TM * MM_TK / 4 / MM_THREADS; ++i) {
+    const int q = tid + i * MM_THREADS;
+    const int r = q / (MM_TK / 4), c = (q % (MM_TK / 4)) * 4;
+    peel4<KT, MM_PLANE_ELEMS>(*reinterpret_cast<const float4*>(raw + r * MM_TK + c),
+                              planes + r * MM_A_PL + c);
+  }
+#pragma unroll
+  for (int i = 0; i < MM_TK * MM_TN / 4 / MM_THREADS; ++i) {
+    const int q = tid + i * MM_THREADS;
+    const int r = q / (MM_TN / 4), c = (q % (MM_TN / 4)) * 4;
+    peel4<KT, MM_PLANE_ELEMS>(
+        *reinterpret_cast<const float4*>(raw + MM_TM * MM_TK + r * MM_TN + c),
+        planes + MM_TM * MM_A_PL + r * MM_B_PL + c);
+  }
+  __syncthreads();  // the planes are published
+  if (idle) return;
+  // The terms' partials of the warp's 32 x 32 tile take TERMS x 32
+  // registers: 96 at two limbs; at three (192) the tile runs as two 32 x 16
+  // halves.  Each limb's fragments are read once a k16 slice (and half).
+  constexpr int TERMS = KT * (KT + 1) / 2;
+  constexpr int NH = (KT == 3) ? 2 : 1;  // column halves
+  constexpr int NJ = 4 / NH;             // n8 fragments a half
+  // this lane's ldmatrix rows: A's rows wm + 16 mi + (lane % 16), K
+  // (lane / 16) * 8; B's rows (K) lane % 8 + 8 ((lane / 8) % 2), columns
+  // wn + 16 np + (lane / 16) * 8
+  const int a_off = (wm + (lane & 15)) * MM_A_PL + (lane >> 4) * 8;
+  const int b_off = MM_TM * MM_A_PL + ((lane & 7) + ((lane >> 3) & 1) * 8) * MM_B_PL + wn +
+                    (lane >> 4) * 8;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    float part[TERMS][2][NJ][4];
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[p][mi][nj][e] = 0.0f;
+    // one k16 slice at a time: unrolled, ptxas hoists the slices' ldmatrix
+    // reads and runs out of registers at two and three limbs
+#pragma unroll 1
+    for (int ks = 0; ks < MM_TK; ks += 16) {
+      uint32_t a[KT][2][4], b[KT][NJ][2];
+#pragma unroll
+      for (int l = 0; l < KT; ++l) {
+        const __nv_bfloat16* const pl = planes + l * MM_PLANE_ELEMS;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) ldmatrix_x4(a[l][mi], pl + a_off + 16 * mi * MM_A_PL + ks);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, pl + b_off + ks * MM_B_PL + 16 * (h * NJ / 2 + np));
+          b[l][2 * np][0] = r[0];
+          b[l][2 * np][1] = r[1];
+          b[l][2 * np + 1][0] = r[2];
+          b[l][2 * np + 1][1] = r[3];
+        }
+      }
+      int p = 0;
+#pragma unroll
+      for (int s = KT - 1; s >= 0; --s)
+#pragma unroll
+        for (int ti = 0; ti <= s; ++ti, ++p)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int nj = 0; nj < NJ; ++nj) mma_16816(part[p][mi][nj], a[ti][mi], b[s - ti][nj]);
+    }
+#pragma unroll
+    for (int p = 0; p < TERMS; ++p)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][h * NJ + nj][e] = __fadd_rn(acc[mi][h * NJ + nj][e], part[p][mi][nj][e]);
+  }
+}
+
+// The step at a map entry of k_tile limbs (KMAX without a map): the fully
+// unrolled peel and terms of min(k_tile, KMAX) limbs, nothing at k_tile < 1
+// (block-uniform, so every thread passes the same barriers).  The limb
+// kernel's k_tile is the constant KMAX, so it runs mma_step<KMAX> alone.
+template <int KMAX>
+__device__ __forceinline__ void mma_step_upto(int k_tile, const float* __restrict__ raw,
+                                              __nv_bfloat16* __restrict__ planes,
+                                              float (&acc)[2][4][4], bool idle, int wm,
+                                              int wn) {
+  if (k_tile >= KMAX) {
+    mma_step<KMAX>(raw, planes, acc, idle, wm, wn);
+  } else if constexpr (KMAX > 1) {
+    mma_step_upto<KMAX - 1>(k_tile, raw, planes, acc, idle, wm, wn);
+  }
+}
+
+// The tensor-core tile body: the limb and mode-map kernels at M >
+// SKINNY_M_MAX and KMAX <= 3 (the design is at the top of this file).  The
+// same arguments, K walk, split ranges, map lookup, terms, term order and
+// fold grain as the other bodies; a block covers MM_TM x MM_TN of ONE map
+// tile, and its MM_THREADS threads run with MM_SMEM_BYTES of dynamic shared
+// memory (allowed once per kernel by `allow_smem`).
+template <int KMAX>
+__device__ __forceinline__ void rmpm_mma_body(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ C, const int* __restrict__ map, int map_ndim, int M,
+    int N, int K, int bm, int bn, int bk) {
+  static_assert(KMAX >= 1 && KMAX <= 3, "the f32 ladder");
+  extern __shared__ __align__(16) float mm_ring[];
+
+  const int sub_m = (bm + MM_TM - 1) / MM_TM;  // thread blocks per map tile, rows
+  const int sub_n = (bn + MM_TN - 1) / MM_TN;
+  const int gn = (N + bn - 1) / bn;
+  const int gk = (K + bk - 1) / bk;
+  const int ti_map = blockIdx.y / sub_m;
+  const int tj_map = blockIdx.x / sub_n;
+  const int row0 = ti_map * bm + (blockIdx.y % sub_m) * MM_TM;
+  const int col0 = tj_map * bn + (blockIdx.x % sub_n) * MM_TN;
+  const int row_end = min(min(row0 + MM_TM, (ti_map + 1) * bm), M);
+  const int col_end = min(min(col0 + MM_TN, (tj_map + 1) * bn), N);
+  if (row0 >= row_end || col0 >= col_end) return;  // whole block, uniformly
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // the fragments' group and thread
+  __nv_bfloat16* const planes =
+      reinterpret_cast<__nv_bfloat16*>(mm_ring + MM_STAGES * MM_STAGE_FLOATS);
+  const int wm = (warp / MM_WARPS_N) * 32;  // this warp's tile in the block
+  const int wn = (warp % MM_WARPS_N) * 32;
+  // warp-uniform: no row or no column of the warp's tile is stored
+  const bool idle = row0 + wm >= row_end || col0 + wn >= col_end;
+
+  // this split's range [t_begin, t_end) of the block's K walk
+  const int per_slab = (bk + MM_TK - 1) / MM_TK;
+  const int steps = k_steps(K, bk, MM_TK);
+  const int t_begin = (int)((long long)steps * blockIdx.z / gridDim.z);
+  const int t_end = (int)((long long)steps * (blockIdx.z + 1) / gridDim.z);
+  float* const out = C + (long long)blockIdx.z * M * N;
+  const long long e_map = (long long)ti_map * gn + tj_map;
+
+  const bool vec_a = chunks16(A, K, bk);
+  const bool vec_b = chunks16(B, N, bn);
+  // Issue step t's copies into ring stage st: A's MM_TM x MM_TK tile, then
+  // B's MM_TK x MM_TN tile, in chunks of four; out of range is zero, which
+  // adds exact zeros to the products.
+  auto issue = [&](int t, int st) {
+    float* const sa = mm_ring + st * MM_STAGE_FLOATS;
+    float* const sb = sa + MM_TM * MM_TK;
+    const int k0 = (t / per_slab) * bk + (t % per_slab) * MM_TK;
+    const int k_end = min((t / per_slab + 1) * bk, K);
+#pragma unroll
+    for (int i = 0; i < MM_TM * MM_TK / 4 / MM_THREADS; ++i) {
+      const int q = tid + i * MM_THREADS;
+      const int r = q / (MM_TK / 4), c = (q % (MM_TK / 4)) * 4;
+      const int valid = row0 + r < row_end ? max(0, min(4, k_end - (k0 + c))) : 0;
+      cp_async_chunk4(sa + r * MM_TK + c, A + (long long)(row0 + r) * K + k0 + c, valid,
+                      vec_a, A);
+    }
+#pragma unroll
+    for (int i = 0; i < MM_TK * MM_TN / 4 / MM_THREADS; ++i) {
+      const int q = tid + i * MM_THREADS;
+      const int r = q / (MM_TN / 4), c = (q % (MM_TN / 4)) * 4;
+      const int k = k0 + r;
+      const int valid = k < k_end ? max(0, min(4, col_end - (col0 + c))) : 0;
+      cp_async_chunk4(sb + r * MM_TN + c, B + (long long)k * N + col0 + c, valid, vec_b, B);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.0f;
+
+  // The ring: steps i + 1 .. i + MM_STAGES - 1 are in flight while step i
+  // is peeled and run.  Two barriers a step: the first publishes step i's
+  // raw tiles and frees both the planes (every warp is done with step
+  // i - 1's MMAs) and the stage of step i - 1, which the next copies refill;
+  // the second, in mma_step, publishes the planes.
+  // The map entry of step t is its slab's (the map's third axis), KMAX
+  // without a map, each loaded a step ahead of its use.
+  auto tile_k = [&](int t) {
+    if (map == nullptr) return KMAX;
+    return (map_ndim == 3) ? map[e_map * gk + t / per_slab] : map[e_map];
+  };
+  const int n_steps = t_end - t_begin;
+  int k_tile = n_steps > 0 ? tile_k(t_begin) : KMAX;
+#pragma unroll
+  for (int j = 0; j < MM_STAGES - 1; ++j) {
+    if (j < n_steps) issue(t_begin + j, j);
+    cp_async_commit();  // one group a step (empty past the range)
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<MM_STAGES - 2>();  // this thread's copies of step i have landed
+    __syncthreads();
+    const int j = i + MM_STAGES - 1;
+    if (j < n_steps) issue(t_begin + j, j % MM_STAGES);
+    cp_async_commit();
+    const int k_next = i + 1 < n_steps ? tile_k(t_begin + i + 1) : KMAX;
+    mma_step_upto<KMAX>(k_tile, mm_ring + (i % MM_STAGES) * MM_STAGE_FLOATS, planes, acc,
+                        idle, wm, wn);
+    k_tile = k_next;
+  }
+  cp_async_wait<0>();  // no copy outlives the block (only empty groups remain)
+
+  // the fragments stored from registers: rows g and g + 8 of each, columns
+  // 2tq and 2tq + 1 as one float2 where the output allows it
+  if (!idle) {
+    const bool vec_c = ((reinterpret_cast<uintptr_t>(out) & 7) | (N & 1) | (bn & 1)) == 0;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = row0 + wm + 16 * mi + g + 8 * hh;
+          const int c = col0 + wn + 8 * nj + 2 * tq;
+          if (r >= row_end) continue;
+          float* const dst = out + (long long)r * N + c;
+          const float x = acc[mi][nj][2 * hh], y = acc[mi][nj][2 * hh + 1];
+          if (vec_c && c + 1 < col_end) {
+            *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+          } else {
+            if (c < col_end) dst[0] = x;
+            if (c + 1 < col_end) dst[1] = y;
+          }
+        }
+  }
+}
+
+// Grid of a body whose blocks cover BM_ x BN_ outputs: one block per
+// BM_ x BN_ piece of each map tile, once for each of `splits` K splits.
+template <int BM_, int BN_>
+inline dim3 body_grid(int M, int N, int bm, int bn, int splits) {
   const int gm = (M + bm - 1) / bm, gn = (N + bn - 1) / bn;
-  const int sub_m = (bm + SK_TM - 1) / SK_TM, sub_n = (bn + SK_TN - 1) / SK_TN;
+  const int sub_m = (bm + BM_ - 1) / BM_, sub_n = (bn + BN_ - 1) / BN_;
   return dim3((unsigned)(gn * sub_n), (unsigned)(gm * sub_m), (unsigned)splits);
 }
 
-// Allow a skinny kernel its ring (more dynamic shared memory than the 48 KB a
-// launch gets unasked) and prefer the largest shared-memory carveout, so
-// that SK_BLOCKS_PER_SM blocks fit an SM.  Once per kernel and device, before
-// the first launch (and so before any capture): never per launch.
+// Allow a kernel the `bytes` of dynamic shared memory of its ring (more than
+// the 48 KB a launch gets unasked) and prefer the largest shared-memory
+// carveout, so that its blocks an SM fit.  Once per kernel and device,
+// before the first launch (and so before any capture): never per launch.
 template <typename Kernel>
-inline cudaError_t allow_skinny(Kernel* kernel) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SK_SMEM_BYTES);
+inline cudaError_t allow_smem(Kernel* kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   return err;
 }
 
-// The body a limb or mode-map launch of M rows at `limbs` (kmax) runs.
+// The body a limb or mode-map launch of M rows at `limbs` (kmax) runs: the
+// skinny body, the tensor-core tile body, or else (4-6 limbs) the tiled one.
 inline bool use_skinny(int M, int limbs) { return M <= SKINNY_M_MAX && limbs <= 3; }
-
-// Grid of thread blocks covering every map tile of an (M, N) output, once
-// for each of `splits` K splits.
-inline dim3 gemm_grid(int M, int N, int bm, int bn, int splits = 1) {
-  const int gm = (M + bm - 1) / bm, gn = (N + bn - 1) / bn;
-  const int sub_m = (bm + TM - 1) / TM, sub_n = (bn + TN - 1) / TN;
-  return dim3((unsigned)(gn * sub_n), (unsigned)(gm * sub_m), (unsigned)splits);
-}
+inline bool use_mma(int M, int limbs) { return M > SKINNY_M_MAX && limbs <= 3; }
 
 // A split count the entry points accept: 1, or up to the walk's T steps
 // (65,535 at most, the grid's z limit) with a workspace to write.

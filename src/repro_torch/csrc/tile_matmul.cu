@@ -8,10 +8,15 @@
 // ti + tj < map[...].  The map lives in device memory and each thread block
 // loads its own entry, so changing a mode changes one int32 and builds
 // nothing; this is the run-time reconfiguration path of the serving engine.
-// It runs the limb kernel's bodies by the same rule (`rmpm::use_skinny`,
-// M only, since kmax <= 3): at M <= 16 the weight-streaming body
-// (swap-AB mma.sync, a cp.async ring of raw f32 tiles, limbs peeled in
-// registers; bound by the weight's bytes), above it the tiled wmma body.
+// It runs the limb kernel's bodies by the same rule (M only, since kmax <=
+// 3): at M <= 16 the weight-streaming body (`rmpm::use_skinny`: swap-AB
+// mma.sync, a cp.async ring of raw f32 tiles, limbs peeled in registers;
+// bound by the weight's bytes), above it the tensor-core tile body
+// (`rmpm::use_mma`: 64 x 128 tiles of mma.sync fragments, a three-stage
+// cp.async ring, each step peeled once into limb planes read with
+// ldmatrix), which branches on the map entry around the fully unrolled peel
+// and terms of 1, 2 or 3 limbs, so a uniform map runs the limb kernel's
+// instructions.
 // The K walk is split S ways across thread blocks exactly as in the limb
 // kernel (each step reads the map entry of its own slab), so uniform maps
 // stay bit-identical to it at every S.  Datapath, split-K, bound and design
@@ -22,20 +27,20 @@
 
 namespace {
 
-template <int KMAX>
-__global__ void __launch_bounds__(rmpm::THREADS)
-tile_matmul_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ C, const int* __restrict__ map,
-                   int map_ndim, int M, int N, int K, int bm, int bn, int bk) {
-  rmpm::rmpm_gemm_body<KMAX>(A, B, C, map, map_ndim, M, N, K, bm, bn, bk);
-}
-
 template <int KMAX, int NF>
 __global__ void __launch_bounds__(rmpm::SK_THREADS, rmpm::SK_BLOCKS_PER_SM)
 tile_matmul_skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
                           float* __restrict__ C, const int* __restrict__ map,
                           int map_ndim, int M, int N, int K, int bm, int bn, int bk) {
   rmpm::rmpm_skinny_body<KMAX, NF>(A, B, C, map, map_ndim, M, N, K, bm, bn, bk);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(rmpm::MM_THREADS, rmpm::MM_BLOCKS_PER_SM)
+tile_matmul_mma_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                       float* __restrict__ C, const int* __restrict__ map, int map_ndim,
+                       int M, int N, int K, int bm, int bn, int bk) {
+  rmpm::rmpm_mma_body<KMAX>(A, B, C, map, map_ndim, M, N, K, bm, bn, bk);
 }
 
 template <int KMAX>
@@ -46,7 +51,7 @@ int launch(const float* a, const float* b, float* c, float* ws, const int* map,
     return (int)cudaErrorInvalidValue;
   float* const dst = splits > 1 ? ws : c;
   if (rmpm::use_skinny(m, KMAX)) {
-    const dim3 grid = rmpm::skinny_grid(m, n, bm, bn, splits);
+    const dim3 grid = rmpm::body_grid<rmpm::SK_TM, rmpm::SK_TN>(m, n, bm, bn, splits);
     if (m <= 8)
       tile_matmul_skinny_kernel<KMAX, 1><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
                                            stream>>>(a, b, dst, map, map_ndim, m, n, k,
@@ -55,10 +60,12 @@ int launch(const float* a, const float* b, float* c, float* ws, const int* map,
       tile_matmul_skinny_kernel<KMAX, 2><<<grid, rmpm::SK_THREADS, rmpm::SK_SMEM_BYTES,
                                            stream>>>(a, b, dst, map, map_ndim, m, n, k,
                                                      bm, bn, bk);
-  } else {
-    tile_matmul_kernel<KMAX><<<rmpm::gemm_grid(m, n, bm, bn, splits),
-                               rmpm::THREADS, 0, stream>>>(
+  } else if (rmpm::use_mma(m, KMAX)) {
+    const dim3 grid = rmpm::body_grid<rmpm::MM_TM, rmpm::MM_TN>(m, n, bm, bn, splits);
+    tile_matmul_mma_kernel<KMAX><<<grid, rmpm::MM_THREADS, rmpm::MM_SMEM_BYTES, stream>>>(
         a, b, dst, map, map_ndim, m, n, k, bm, bn, bk);
+  } else {
+    return (int)cudaErrorInvalidValue;  // no body serves it
   }
   return rmpm::finish_splits(c, ws, m, n, splits, stream);
 }
@@ -90,17 +97,22 @@ extern "C" int rmpm_tile_matmul(const void* a, const void* b, void* c,
   }
 }
 
-// Allow the skinny kernels their ring on the current device; the wrapper
-// calls it once per device, before the device's first launch.
-// Returns the first error of cudaFuncSetAttribute, or 0.
+// Allow the skinny and tensor-core tile kernels their rings on the current
+// device; the wrapper calls it once per device, before the device's first
+// launch.  Returns the first error of cudaFuncSetAttribute, or 0.
 extern "C" int rmpm_tile_matmul_prepare() {
+  using rmpm::allow_smem;
+  constexpr int SK = rmpm::SK_SMEM_BYTES, MM = rmpm::MM_SMEM_BYTES;
   cudaError_t err = cudaSuccess;
-  for (cudaError_t e : {rmpm::allow_skinny(tile_matmul_skinny_kernel<1, 1>),
-                        rmpm::allow_skinny(tile_matmul_skinny_kernel<1, 2>),
-                        rmpm::allow_skinny(tile_matmul_skinny_kernel<2, 1>),
-                        rmpm::allow_skinny(tile_matmul_skinny_kernel<2, 2>),
-                        rmpm::allow_skinny(tile_matmul_skinny_kernel<3, 1>),
-                        rmpm::allow_skinny(tile_matmul_skinny_kernel<3, 2>)})
+  for (cudaError_t e : {allow_smem(tile_matmul_skinny_kernel<1, 1>, SK),
+                        allow_smem(tile_matmul_skinny_kernel<1, 2>, SK),
+                        allow_smem(tile_matmul_skinny_kernel<2, 1>, SK),
+                        allow_smem(tile_matmul_skinny_kernel<2, 2>, SK),
+                        allow_smem(tile_matmul_skinny_kernel<3, 1>, SK),
+                        allow_smem(tile_matmul_skinny_kernel<3, 2>, SK),
+                        allow_smem(tile_matmul_mma_kernel<1>, MM),
+                        allow_smem(tile_matmul_mma_kernel<2>, MM),
+                        allow_smem(tile_matmul_mma_kernel<3>, MM)})
     if (err == cudaSuccess) err = e;
   return (int)err;
 }

@@ -35,6 +35,9 @@ BUILD_COUNT = 0
 BUILD_LOG = ""
 LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0,
             "limb_matmul_dd": 0}
+#: the same launches of the limb, mode-map and double-f32 kernels, by the
+#: device body they ran (``kernels.limb_matmul.ops.gemm_body``)
+BODY_LAUNCHES = {"skinny": 0, "mma": 0, "wide": 0}
 
 _LIB = None
 #: devices whose kernels ``prepare_device`` has prepared
@@ -54,12 +57,17 @@ def build_dir() -> Path:
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def body_launch_counts() -> dict[str, int]:
+    return dict(BODY_LAUNCHES)
 
 
 def _find_nvcc() -> str:
@@ -127,7 +135,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rmpm_limb_matmul_dd.restype = i
     lib.rmpm_error_string.argtypes = [i]
     lib.rmpm_error_string.restype = ctypes.c_char_p
-    # per device: allow the weight-streaming kernels their shared-memory ring
+    # per device: allow the skinny and tensor-core tile kernels their rings
     for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
         fn.argtypes = []
         fn.restype = i
@@ -145,8 +153,9 @@ def library(verbose: bool = False) -> ctypes.CDLL:
 
 def prepare_device(lib: ctypes.CDLL) -> None:
     """Once per device, on the current device before its first launch of the
-    limb or mode-map kernel: allow their weight-streaming instantiations the
-    dynamic shared memory of their ring (``rmpm::allow_skinny``).  The
+    limb or mode-map kernel: allow their skinny and tensor-core tile
+    instantiations the dynamic shared memory of their rings
+    (``rmpm::allow_smem``).  The
     port's CUDA graphs capture a step only after running it once eagerly
     (``serve.graphs.CompiledStep``), so this runs before any capture."""
     import torch
@@ -155,7 +164,7 @@ def prepare_device(lib: ctypes.CDLL) -> None:
     if index in _PREPARED:
         return
     for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
-        check_launch(lib, fn(), "allowing the skinny kernels their shared memory")
+        check_launch(lib, fn(), "allowing the kernels their shared-memory rings")
     _PREPARED.add(index)
 
 

@@ -22,32 +22,45 @@ order s = 0..S-1: the limb and mode-map kernels add f32 partials
 ``splits=`` only as an override for timing, and the plain versions take it
 so they combine the same partials in the same order.
 
-Two device bodies (``csrc/rmpm_gemm.cuh``) serve the limb and mode-map
-kernels, chosen by M (``gemm_body``, the mirror of ``rmpm::use_skinny``):
+Three device bodies (``csrc/rmpm_gemm.cuh``) serve the limb and mode-map
+kernels, chosen by M and by whether k is above three limbs (``gemm_body``,
+the mirror of ``rmpm::use_skinny`` and ``rmpm::use_mma``):
 
-* M <= ``SKINNY_M_MAX`` (16) at up to three limbs — every decode step — runs
-  the weight-streaming body.  There the bound is the weight's bytes, by
-  about 50x, and what held the tiled body off it was too few bytes in flight
-  and a fixed cost per K step.  So it computes C^T = B^T A^T with
-  ``mma.sync`` (swap-AB: weight columns on the MMA's 16-row side), streams
-  raw f32 tiles through a ``cp.async`` ring of three stages (two K steps in
-  flight, three blocks an SM), and peels limbs in registers with one barrier
-  a step.
-* Every other launch (M > 16, the limb kernel at 4-6 limbs, and the
-  double-f32 kernel at every M) runs the tiled ``wmma`` body, which
-  prefetches one K step into registers and peels it into limb planes in
-  shared memory.  What bounds it at M > 16 is that fixed cost per K step and,
-  for the double-f32 kernel, its TwoSum folds.  The double-f32 kernel loads
-  and peels four consecutive elements a thread, with 16-byte loads where the
-  operand's base pointer, row length and blocks allow them and 4-byte loads
-  elsewhere (a sliced operand, K = 33); the skinny body copies the same way.
-  The kernel decides that from the pointers it is given, so no caller can
-  misalign it.
+* ``"skinny"``: M <= ``SKINNY_M_MAX`` (16) at up to three limbs — every
+  decode step.  There the bound is the weight's bytes, by about 50x, and
+  what held the tiled body off it was too few bytes in flight and a fixed
+  cost per K step.  So it computes C^T = B^T A^T with ``mma.sync`` (swap-AB:
+  weight columns on the MMA's 16-row side), streams raw f32 tiles through a
+  ``cp.async`` ring of three stages (two K steps in flight, three blocks an
+  SM), and peels limbs in registers with one barrier a step.
+* ``"mma"``: M > 16 at up to three limbs — prefills, Whisper's encoder
+  frames and ``apply`` decoder, InternVL2's patch rows, the planner's and
+  tuner's square shapes.  The bound is the weight's bytes at tens of rows
+  and the retained MMAs at hundreds; the tiled body reached 0.03-0.24 of it,
+  held back by its 32 x 32 tile (each weight element fetched M/32 times),
+  one-element loads with one K step in flight, and a fixed cost per step.
+  So a block covers 64 x 128 outputs with eight warps of 2 x 4 ``mma.sync``
+  fragments, streams raw f32 tiles through a ``cp.async`` ring of three
+  stages (two K steps in flight), peels each step once into three bf16 limb
+  planes in shared memory, from which the warps read their fragments with
+  ``ldmatrix`` (one block an SM: the ring and the planes take 222 KB), and
+  passes two barriers a step; the mode-map kernel branches on its map entry
+  around the fully unrolled peel and terms of 1, 2 or 3 limbs, so a uniform
+  map runs the limb kernel's instructions.
+* ``"wide"``: the limb kernel at 4-6 limbs, and the double-f32 kernel at
+  every M, run the tiled ``wmma`` body, which prefetches one K step into
+  registers and peels it into limb planes in shared memory.  What bounds it
+  is that fixed cost per K step and, for the double-f32 kernel, its TwoSum
+  folds.  The double-f32 kernel loads and peels four consecutive elements a
+  thread, with 16-byte loads where the operand's base pointer, row length
+  and blocks allow them and 4-byte loads elsewhere (a sliced operand,
+  K = 33); the skinny and ``"mma"`` bodies copy the same way.  The kernel
+  decides that from the pointers it is given, so no caller can misalign it.
 
-Both bodies fold each term's products into the f32 accumulator once per K
+Every body folds each term's products into the f32 accumulator once per K
 step of ``k_step(k)``, so the walk, the splits and the plain versions below
-describe both; ``split_k`` sees the body's thread-block tile and residency
-(``THREAD_TILE``, ``BLOCKS_PER_SM``).
+describe them all; ``split_k`` sees the body's thread-block tile and
+residency (``THREAD_TILE``, ``BLOCKS_PER_SM``).
 """
 from __future__ import annotations
 
@@ -63,15 +76,18 @@ from repro_torch import oprecord
 DEFAULT_BLOCK = (128, 128, 512)
 #: the largest M the weight-streaming body serves (``rmpm::SKINNY_M_MAX``)
 SKINNY_M_MAX = 16
-#: thread-block tile (rows, cols) of each body: the tiled body's ``TM x TN``
-#: and the weight-streaming body's ``SK_TM x SK_TN`` (``csrc/rmpm_gemm.cuh``)
-THREAD_TILE = {"wide": (32, 32), "skinny": (16, 64)}
+#: thread-block tile (rows, cols) of each body: the tiled body's ``TM x TN``,
+#: the weight-streaming body's ``SK_TM x SK_TN`` and the tensor-core tile
+#: body's ``MM_TM x MM_TN`` (``csrc/rmpm_gemm.cuh``)
+THREAD_TILE = {"wide": (32, 32), "skinny": (16, 64), "mma": (64, 128)}
 #: resident thread blocks per SM that ``split_k`` fills, by body: the tiled
 #: body uses up to 255 registers x 128 threads, so two blocks fit an SM's
 #: 65,536 registers; the skinny body's ring of 64.5 KB leaves room for three
 #: in an SM's 228 KB of shared memory, and its launch bounds hold its
-#: registers to what three blocks may use (``rmpm::SK_BLOCKS_PER_SM``)
-BLOCKS_PER_SM = {"wide": 2, "skinny": 3}
+#: registers to what three blocks may use (``rmpm::SK_BLOCKS_PER_SM``); the
+#: tensor-core tile body's ring and limb planes (222 KB) leave room for one
+#: (``rmpm::MM_BLOCKS_PER_SM``)
+BLOCKS_PER_SM = {"wide": 2, "skinny": 3, "mma": 1}
 #: the longest stretch of K one split sums into its f32 accumulators.  The
 #: accumulation error grows with the stretch: unsplit at K = 33792 (the
 #: command-r+ down projection, 4 x 33792 x 12288, k = 3) the limb kernel lay
@@ -152,15 +168,18 @@ def reduce_splits(parts: list[torch.Tensor]) -> torch.Tensor:
 def gemm_body(m: int, k: int) -> str:
     """The body a limb or mode-map launch of ``m`` rows at ``k`` limbs (kmax
     for the map) runs: ``"skinny"`` at M <= ``SKINNY_M_MAX`` and k <= 3,
-    else ``"wide"`` (``rmpm::use_skinny``).  On the f32 ladder it depends on
-    M only, so a uniform map and the limb kernel at the same M run one body.
-    The double-f32 kernel always runs ``"wide"``."""
-    return "skinny" if m <= SKINNY_M_MAX and k <= 3 else "wide"
+    ``"mma"`` above it at k <= 3, else ``"wide"`` (``rmpm::use_skinny``,
+    ``rmpm::use_mma``).  On the f32 ladder it depends on M only, so a
+    uniform map and the limb kernel at the same M run one body.  The
+    double-f32 kernel always runs ``"wide"``."""
+    if k > 3:
+        return "wide"
+    return "skinny" if m <= SKINNY_M_MAX else "mma"
 
 
 def gemm_blocks(m: int, n: int, bm: int, bn: int, body: str = "wide") -> int:
-    """Thread blocks of one split of the body's grid (``rmpm::gemm_grid``,
-    ``rmpm::skinny_grid``) at the clamped blocks."""
+    """Thread blocks of one split of the body's grid (``rmpm::body_grid``)
+    at the clamped blocks."""
     tm, tn = THREAD_TILE[body]
     return (-(-m // bm) * -(-bm // tm)) * (-(-n // bn) * -(-bn // tn))
 
@@ -274,6 +293,7 @@ def _launch(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int, bk: in
             bm, bn, bk, splits, build.current_stream_ptr())
     build.check_launch(lib, code, "limb_matmul")
     build.LAUNCHES["limb_matmul"] += 1
+    build.BODY_LAUNCHES[gemm_body(m, k)] += 1
     return out
 
 
@@ -411,6 +431,7 @@ def _launch_dd(a2: torch.Tensor, b2: torch.Tensor, k: int, bm: int, bn: int,
             build.current_stream_ptr())
     build.check_launch(lib, code, "limb_matmul_dd")
     build.LAUNCHES["limb_matmul_dd"] += 1
+    build.BODY_LAUNCHES["wide"] += 1
     return hi, lo
 
 

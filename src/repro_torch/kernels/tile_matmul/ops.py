@@ -96,6 +96,7 @@ def _launch(a2, b2, mode_map, kmax, bm, bn, bk, splits) -> torch.Tensor:
             build.current_stream_ptr())
     build.check_launch(lib, code, "tile_matmul")
     build.LAUNCHES["tile_matmul"] += 1
+    build.BODY_LAUNCHES[gemm_body(m, kmax)] += 1
     return out
 
 

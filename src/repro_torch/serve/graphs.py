@@ -23,9 +23,10 @@ tensor from host data.
   ``jax.disable_jit``), the same function runs eagerly on the same
   buffers.
 
-``kernels.build.LAUNCHES`` is counted by the kernels' Python wrappers, which
-a replay does not run: the launches a capture recorded are added per
-replay instead, so launch counts stay true under replay.
+``kernels.build.LAUNCHES`` (and ``BODY_LAUNCHES``) are counted by the
+kernels' Python wrappers, which a replay does not run: the launches a
+capture recorded are added per replay instead, so launch counts stay true
+under replay.
 
 The steps of one engine capture into ONE private memory pool (``pool``,
 ``torch.cuda.graph_pool_handle``): they are replayed one at a time and the
@@ -105,8 +106,10 @@ class CompiledStep:
         self.pool = pool
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
-        #: kernel launches one replay makes, recorded at capture
+        #: kernel launches one replay makes, recorded at capture, by kernel
+        #: and by device body
         self.launches: dict[str, int] = {}
+        self.body_launches: dict[str, int] = {}
         self.captures = 0
         self.replays = 0
         #: host seconds of the last warm-up and capture together
@@ -118,8 +121,10 @@ class CompiledStep:
         if self.graph is None:
             self._capture()
         self.graph.replay()
-        for name, n in self.launches.items():
-            build.LAUNCHES[name] += n
+        for counts, recorded in ((build.LAUNCHES, self.launches),
+                                 (build.BODY_LAUNCHES, self.body_launches)):
+            for name, n in recorded.items():
+                counts[name] += n
         self.replays += 1
         return self.outputs
 
@@ -139,14 +144,16 @@ class CompiledStep:
         # pool can take them (a large model's step cannot hold both)
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
-        before = build.launch_counts()
+        before, before_body = build.launch_counts(), build.body_launch_counts()
         with torch.cuda.graph(graph, pool=self.pool):
             outputs = self.fn()
-        after = build.launch_counts()
+        after, after_body = build.launch_counts(), build.body_launch_counts()
         # a capture enqueues nothing: what the wrappers counted meanwhile is
         # what each replay will launch
         self.launches = {name: after[name] - before[name] for name in after}
+        self.body_launches = {name: after_body[name] - before_body[name] for name in after_body}
         build.LAUNCHES.update(before)
+        build.BODY_LAUNCHES.update(before_body)
         self.graph, self.outputs = graph, outputs
         self.captures += 1
         self.capture_s = time.perf_counter() - t0

@@ -10,6 +10,7 @@ one layout.  Tolerances: against the reference's kernels (interpret mode)
 """
 import functools
 import importlib.util
+import inspect
 import os
 
 import numpy as np
@@ -130,7 +131,7 @@ def test_splits_cover_every_step_of_the_walk_once_and_in_order(p):
 def test_split_k_fills_the_card_and_stops_when_the_grid_does(p):
     m, n, kd, bm, bn, bk, tk, sms = p
     _, (bm, bn, bk) = tile_grid(m, n, kd, bm=bm, bn=bn, bk=bk)
-    for body in ("wide", "skinny"):
+    for body in ("wide", "skinny", "mma"):
         s = split_k(m, n, kd, bm=bm, bn=bn, bk=bk, tk=tk, sms=sms, body=body)
         blocks = gemm_blocks(m, n, bm, bn, body)
         per_sm = BLOCKS_PER_SM[body]
@@ -174,9 +175,12 @@ def test_split_k_is_the_same_at_every_f32_ladder_limb_count(m, kd, n):
 
 @pytest.mark.parametrize("m,kd,n,want", [
     (4, 1024, 1024, 16), (4, 2816, 1024, 24), (4, 1024, 2816, 9),
-    (48, 1024, 1024, 4), (48, 2816, 1024, 4), (48, 1024, 2816, 1),
+    (48, 1024, 1024, 16), (48, 2816, 1024, 16), (48, 1024, 2816, 6),
     (1024, 1024, 1024, 1), (4096, 4096, 4096, 1)])
 def test_planned_splits_at_the_serving_and_tuner_shapes_on_132_sms(m, kd, n, want):
+    """M = 48: (N / 128) blocks of the tensor-core tile body, one an SM
+    (8 blocks -> S = 16 at N = 1024, 22 -> 6 at N = 2816); 1024 and 4096
+    rows fill the card with their 64 x 128 blocks alone."""
     assert _plan(m, kd, n) == want
 
 
@@ -226,13 +230,14 @@ def _held_kn():
 @given(st.sampled_from(DECODE_ROWS), st.integers(0, 10**6), st.integers(1, 200))
 def test_split_k_at_decode_rows_is_the_same_at_every_ladder_limb_count(m, pick, sms):
     """At M in {1, 4, 8, 16, 17} over every held (K, N): one body for the
-    whole f32 ladder (the skinny one up to M = 16), one K step, one S, and S
-    inside the walk and the body's fill of the card."""
+    whole f32 ladder (the skinny one up to M = 16, the tensor-core tile one
+    above), one K step, one S, and S inside the walk and the body's fill of
+    the card."""
     kn = _held_kn()
     kd, n = kn[pick % len(kn)]
     assert len({gemm_body(m, k) for k in (1, 2, 3)}) == 1
     body = gemm_body(m, 1)
-    assert body == ("skinny" if m <= SKINNY_M_MAX else "wide")
+    assert body == ("skinny" if m <= SKINNY_M_MAX else "mma")
     plans = {_plan(m, kd, n, k, sms=sms) for k in (1, 2, 3)}
     assert len(plans) == 1
     s = plans.pop()
@@ -250,6 +255,26 @@ def test_the_ladder_keeps_one_k_step_and_wider_modes_the_tiled_body(m):
     assert k_step(4) == 32
 
 
+@settings(max_examples=200, deadline=None)
+@given(st.integers(SKINNY_M_MAX + 1, 2048), st.integers(0, 10**6))
+def test_m_above_16_runs_the_tensor_core_tile_body_on_the_ladder(m, pick):
+    """M in 17..2048: the limb and mode-map kernels run the tensor-core tile
+    body at every f32-ladder limb count, with one S for the ladder read from
+    that body's tile and residency; 4-6 limbs and the double-f32 kernel (the
+    wrapper's default body) keep the tiled one."""
+    assert {gemm_body(m, k) for k in (1, 2, 3)} == {"mma"}
+    assert {gemm_body(m, k) for k in (4, 5, 6)} == {"wide"}
+    kn = _held_kn()
+    kd, n = kn[pick % len(kn)]
+    _, (bm, bn, bk) = tile_grid(m, n, kd)
+    plans = {_plan(m, kd, n, k) for k in (1, 2, 3)}
+    steps = k_steps(kd, bk, k_step(3))
+    fill = BLOCKS_PER_SM["mma"] * H100_SMS // gemm_blocks(m, n, bm, bn, "mma")
+    assert plans == {max(1, min(max(fill, -(-kd // MAX_SPLIT_LEN)), steps))}
+    # the double-f32 wrapper plans with the tiled body's tile
+    assert inspect.signature(resolve_splits).parameters["body"].default == "wide"
+
+
 def _header_constants():
     """The text of ``rmpm_gemm.cuh`` and its ``constexpr int`` constants, as
     ``chip_smoke.py`` reads them for its ``kernels`` line."""
@@ -261,12 +286,16 @@ def _header_constants():
 def test_the_python_mirror_matches_the_header():
     text, c = _header_constants()
     assert c["SKINNY_M_MAX"] == SKINNY_M_MAX == 16
-    assert THREAD_TILE == {"wide": (c["TM"], c["TN"]), "skinny": (c["SK_TM"], c["SK_TN"])}
+    assert THREAD_TILE == {"wide": (c["TM"], c["TN"]), "skinny": (c["SK_TM"], c["SK_TN"]),
+                           "mma": (c["MM_TM"], c["MM_TN"])}
     assert BLOCKS_PER_SM["skinny"] == c["SK_BLOCKS_PER_SM"]
-    assert c["SK_TK"] == k_step(3)
+    assert BLOCKS_PER_SM["mma"] == c["MM_BLOCKS_PER_SM"]
+    assert c["SK_TK"] == c["MM_TK"] == k_step(3)
     assert "static constexpr int TK = (KMAX <= 3) ? 64 : 32;" in text
     # the route: M only on the ladder, as gemm_body
     assert "inline bool use_skinny(int M, int limbs) { return M <= SKINNY_M_MAX && limbs <= 3; }" \
+        in text
+    assert "inline bool use_mma(int M, int limbs) { return M > SKINNY_M_MAX && limbs <= 3; }" \
         in text
     # the ring leaves room for the blocks split_k counts on an SM (228 KB),
     # and its strides keep the copies 16-byte aligned
@@ -278,6 +307,67 @@ def test_the_python_mirror_matches_the_header():
     assert len({(2 * t * c["SK_B_LD"] + g) % 32 for t in range(4) for g in range(8)}) == 32
     assert len({(g * c["SK_A_LD"] + 2 * t + e) % 32
                 for t in range(4) for g in range(4) for e in range(2)}) == 32
+    # the tensor-core tile body: eight warps of 32 x 32 (2 x 4 m16n8
+    # fragments) over its 64 x 128 block; a raw ring of at least three stages
+    # (two K steps in flight) and three limb planes within the 227 KB a block
+    # may use, one block an SM with the runtime's 1 KB; 16-byte-aligned
+    # stages, planes and plane rows (ldmatrix reads 16-byte rows)
+    assert (c["MM_TM"], c["MM_TN"]) == (32 * c["MM_WARPS_M"], 32 * c["MM_WARPS_N"]) == (64, 128)
+    assert c["MM_THREADS"] == 32 * 8
+    assert c["MM_STAGES"] >= 3 and c["MM_LIMBS"] == 3
+    assert c["MM_STAGE_FLOATS"] == c["MM_TM"] * c["MM_TK"] + c["MM_TK"] * c["MM_TN"]
+    assert c["MM_PLANE_ELEMS"] == c["MM_TM"] * c["MM_A_PL"] + c["MM_TK"] * c["MM_B_PL"]
+    assert c["MM_SMEM_BYTES"] == (c["MM_STAGES"] * c["MM_STAGE_FLOATS"] * 4
+                                  + c["MM_LIMBS"] * c["MM_PLANE_ELEMS"] * 2)
+    assert 48 * 1024 < c["MM_SMEM_BYTES"] <= 227 * 1024
+    assert c["MM_BLOCKS_PER_SM"] * (c["MM_SMEM_BYTES"] + 1024) <= 228 * 1024
+    assert c["MM_STAGE_FLOATS"] % 4 == 0 and c["MM_PLANE_ELEMS"] % 8 == 0
+    assert c["MM_A_PL"] % 8 == 0 and c["MM_B_PL"] % 8 == 0
+    assert c["MM_A_PL"] >= c["MM_TK"] and c["MM_B_PL"] >= c["MM_TN"]
+    # conflict-free ldmatrix: the eight 16-byte rows of an 8 x 8 read (A's
+    # rows of K, B's rows of N) fall in eight distinct 16-byte bank groups
+    for ld in (c["MM_A_PL"], c["MM_B_PL"]):
+        assert len({(r * ld * 2 // 16) % 8 for r in range(8)}) == 8
+    # and the peel's float4 reads and 8-byte plane stores: a half-warp's
+    # sixteen consecutive chunks of a row are contiguous
+    assert c["MM_TK"] % 64 == 0 and c["MM_TN"] % 64 == 0
+    # the launch bounds hold each body to the residency split_k counts
+    for body in ("limb_matmul", "tile_matmul"):
+        with open(os.path.join(ROOT, "src", "repro_torch", "csrc", f"{body}.cu")) as fh:
+            assert "__launch_bounds__(rmpm::MM_THREADS, rmpm::MM_BLOCKS_PER_SM)" in fh.read()
+
+
+def test_chip_smoke_reads_every_mma_instantiation_from_ptxas():
+    """The ``kernels`` line's ptxas record of the tensor-core tile body: its
+    six kernels (limb and map, KMAX 1-3) with their registers and spills,
+    the skinny and tiled ones left out, and the ring's dynamic shared memory
+    from the header."""
+    cs = _chip_smoke()
+    entry = "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__{}' for 'sm_90a'"
+    lines = []
+    for i, (kind, kmax) in enumerate((kind, kmax) for kind in ("limb", "tile")
+                                     for kmax in (1, 2, 3)):
+        sig = "EEvPKfS2_Pfiiiiii" if kind == "limb" else "EEvPKfS2_PfPKiiiiiiii"
+        lines += [entry.format(f"{kind}_matmul_mma_kernelILi{kmax}{sig}"),
+                  f"    0 bytes stack frame, {i} bytes spill stores, {3 * i} bytes spill loads",
+                  f"ptxas info    : Used {200 + i} registers, used 1 barriers"]
+    lines += [entry.format("limb_matmul_skinny_kernelILi3ELi2EEEvPKfS2_Pfiiiiii"),
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+              "ptxas info    : Used 168 registers, used 1 barriers",
+              entry.format("limb_matmul_kernelILi4EEEvPKfS2_Pfiiiiii"),
+              "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+              "ptxas info    : Used 138 registers, used 1 barriers, 25088 bytes smem"]
+    got = cs.body_ptxas("\n".join(lines), "mma")
+    _, consts = _header_constants()
+    assert len(got) == 6
+    assert [(g["kernel"], g["kmax"]) for g in got] == [
+        (f"{kind}_matmul", k) for kind in ("limb", "tile") for k in (1, 2, 3)]
+    assert [g["registers"] for g in got] == [200 + i for i in range(6)]
+    assert [(g["spill_stores"], g["spill_loads"]) for g in got] == [(i, 3 * i) for i in range(6)]
+    assert {g["static_smem_bytes"] for g in got} == {0}
+    assert {g["dynamic_smem_bytes"] for g in got} == {consts["MM_SMEM_BYTES"]}
+    assert "nf" not in got[0]
+    assert len(cs.body_ptxas("\n".join(lines), "skinny")) == 1
 
 
 def test_chip_smoke_reads_every_skinny_instantiation_from_ptxas():
@@ -295,7 +385,7 @@ def test_chip_smoke_reads_every_skinny_instantiation_from_ptxas():
     lines += [entry.format("limb_matmul_kernelILi3EEEvPKfS2_Pfiiiiii"),
               "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
               "ptxas info    : Used 255 registers, used 1 barriers, 33792 bytes smem"]
-    got = cs.skinny_ptxas("\n".join(lines))
+    got = cs.body_ptxas("\n".join(lines), "skinny")
     _, consts = _header_constants()
     assert len(got) == 12
     assert {g["kernel"] for g in got[:6]} == {"limb_matmul"}
@@ -310,10 +400,10 @@ def test_chip_smoke_reads_every_skinny_instantiation_from_ptxas():
 @pytest.mark.parametrize("m,kd,n,want", [
     (1, 1024, 1024, 16), (4, 4096, 12288, 2), (4, 12288, 33792, 1), (4, 33792, 12288, 3),
     (8, 4096, 1024, 24),
-    (16, 1024, 1024, 16), (17, 1024, 1024, 8)])
+    (16, 1024, 1024, 16), (17, 1024, 1024, 16)])
 def test_planned_splits_of_each_body_on_132_sms(m, kd, n, want):
     """M <= 16: (M/bm) x (N / 64) blocks of the skinny body, three an SM;
-    M = 17: the tiled body's 32 x 32 tiles, two an SM, as before."""
+    M = 17: the tensor-core tile body's 64 x 128 blocks, one an SM."""
     assert _plan(m, kd, n) == want
 
 
@@ -447,6 +537,22 @@ def test_out_of_range_splits_raise_before_anything_runs():
     with pytest.raises(ValueError, match="splits must lie in"):
         limb_matmul_plain(a, b, 2, splits=5)
     assert build.launch_counts() == before and build.BUILD_COUNT == 0
+
+
+def test_launches_are_counted_by_body_only_where_a_kernel_launches():
+    """``build.BODY_LAUNCHES`` names every body ``split_k`` knows; the CPU's
+    plain versions launch nothing, so neither count moves, and a reset
+    zeroes both."""
+    assert set(build.BODY_LAUNCHES) == set(THREAD_TILE) == set(BLOCKS_PER_SM)
+    build.BODY_LAUNCHES["mma"] += 1
+    build.reset_launch_counts()
+    assert build.body_launch_counts() == {body: 0 for body in THREAD_TILE}
+    a, b = (_t(x) for x in _ab(10, 20, 128, 24))
+    limb_matmul(a, b, 2)
+    tile_matmul_runtime(a, b, 2)
+    limb_ops.limb_matmul_dd(a, b, 4)
+    assert build.body_launch_counts() == {body: 0 for body in THREAD_TILE}
+    assert sum(build.launch_counts().values()) == 0
 
 
 def test_cuda_launch_paths_check_operands_before_building():

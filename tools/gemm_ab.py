@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""gemm_ab.py — time the limb, mode-map and double-f32 kernels and two
-captured decode steps of two checkouts on one GPU, in turns.
+"""gemm_ab.py — time the limb, mode-map and double-f32 kernels, two captured
+decode steps and two eager prefills of two checkouts on one GPU, in turns.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc,
 with an earlier tree unpacked beside it (``git archive <commit> | tar -x -C
@@ -14,21 +14,30 @@ and its own build directory, in the order parent, change, change, parent
 and times, with its own ``chip_smoke.py``'s ``time_ms`` (CUDA events around
 calls queued behind a head start, operands rotated past the L2 cache):
 
-  kernels  the limb kernel and the mode-map kernel (``tile_matmul`` with the
-           uniform map built beforehand) at k = 2 and 3, at every (M, K, N)
-           of ``chip_smoke.py``'s ``MAIN_KN``, ``HYBRID_KN`` and
-           ``FAMILY_SHAPES`` with M <= 16, and at M = 48 over ``MAIN_KN`` and
-           ``HYBRID_KN``; the double-f32 kernel at M = 4 and 48 over
-           ``MAIN_KN`` at 4 and 6 limbs; one f32 ``torch.matmul`` per shape;
-  steps    the captured decode step of ``qwen1.5-0.5b`` at full width and
-           depth and of ``recurrentgemma-9b`` at full width cut to one
-           (rec, rec, attn_local) supergroup (M16 ``pallas``, 4 slots, 24
-           cached tokens): replay device ms by CUDA events, kernel ms per
-           step and the limb and map kernels' share from ``torch.profiler``.
+  kernels   the limb kernel and the mode-map kernel (``tile_matmul`` with
+            the uniform map built beforehand) at k = 2 and 3, at every
+            (M, K, N) of ``chip_smoke.py``'s ``MAIN_KN``, ``HYBRID_KN`` and
+            ``FAMILY_SHAPES`` with M <= 16, at M = 48 over ``MAIN_KN`` and
+            ``HYBRID_KN``, and at every M > 16 row of ``FAMILY_SHAPES`` (M =
+            23, 48, 264, 279, 1500); the double-f32 kernel at M = 4 and 48
+            over ``MAIN_KN`` at 4 and 6 limbs; one f32 ``torch.matmul`` per
+            shape;
+  steps     the captured decode step of ``qwen1.5-0.5b`` at full width and
+            depth and of ``recurrentgemma-9b`` at full width cut to one
+            (rec, rec, attn_local) supergroup (M16 ``pallas``, 4 slots, 24
+            cached tokens): replay device ms by CUDA events, kernel ms per
+            step and the limb and map kernels' share from ``torch.profiler``;
+  prefills  two eager calls through the model's entry points at full width
+            and depth, M16 ``pallas``, timed by CUDA events: Whisper's
+            ``prefill_encoder`` over 1,500 frames (``whisper-medium``) and a
+            48-token prefill of ``qwen1.5-0.5b`` (``decode_step`` on a fresh
+            state), with the kernel launches of one call.
 
 Each arm prints one JSON line; the last line sets every timed row beside the
 median of the parent's two runs and of the change's two, their ratio and,
-for the kernels, the share of the byte bound.
+for the kernels, the share of the bound; it counts the rows of each body
+(``path``: the change's) that are faster than the parent in both change
+runs, and the largest change of the others.
 """
 from __future__ import annotations
 
@@ -67,7 +76,7 @@ def _worker(tree: str, tasks: list[str]) -> dict:
     build.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
     body = getattr(limb_ops, "gemm_body", lambda m, k: "wide")
-    out: dict = {"rows": [], "steps": {}}
+    out: dict = {"rows": [], "steps": {}, "prefills": {}}
 
     def timed_gemm(m, k, n, kernels):
         a = cs._rand(gen, m, k)
@@ -96,7 +105,9 @@ def _worker(tree: str, tasks: list[str]) -> dict:
         skinny = sorted({(m, k, n) for m_rows, kn in cs.FAMILY_SHAPES.values()
                          for m in m_rows if m <= 16 for (k, n) in kn}
                         | {(4, k, n) for (k, n) in cs.MAIN_KN + cs.HYBRID_KN})
-        wide = [(48, k, n) for (k, n) in cs.MAIN_KN + cs.HYBRID_KN]
+        wide = sorted({(m, k, n) for m_rows, kn in cs.FAMILY_SHAPES.values()
+                       for m in m_rows if m > 16 for (k, n) in kn}
+                      | {(48, k, n) for (k, n) in cs.MAIN_KN + cs.HYBRID_KN})
         pairs = [(name, limbs) for limbs in (2, 3) for name in ("limb_matmul", "tile_matmul")]
         for m, k, n in skinny + wide:
             timed_gemm(m, k, n, pairs)
@@ -129,6 +140,37 @@ def _worker(tree: str, tasks: list[str]) -> dict:
                 launches_per_step=dict(step.launches))
             del eng, step, params, model
             torch.cuda.empty_cache()
+    if "prefills" in tasks:
+        policy = PrecisionPolicy(default=Mode.M16, impl="pallas")
+        for arch, what in ((cs.WHISPER_ARCH, "prefill_encoder_1500_frames"),
+                           (cs.ARCH, "prefill_48_tokens")):
+            model = cs.full_width_model(policy, arch=arch)
+            params = model.init(0)
+            g = torch.Generator(device="cuda").manual_seed(50)
+            state = model.init_decode_state(1, 64, per_slot=True)
+            if what.startswith("prefill_encoder"):
+                frames = torch.randn((1, cs.WHISPER_FRAMES, model.cfg.d_model), generator=g,
+                                     device="cuda") * 0.02
+                m_rows = cs.WHISPER_FRAMES
+                call = lambda i: model.prefill_encoder(params, frames, state)  # noqa: E731
+            else:
+                prompt = torch.randint(0, model.cfg.vocab, (1, 48), generator=g, device="cuda")
+                m_rows = 48
+                call = lambda i: model.decode_step(params, prompt, state)  # noqa: E731
+            call(0)
+            torch.cuda.synchronize()
+            build.reset_launch_counts()
+            call(0)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in build.launch_counts().items() if v}
+            body_launches = getattr(build, "body_launch_counts", dict)()
+            device_ms, enqueue_ms = cs.time_ms(call, warmup=1, reps=3, samples=5)
+            out["prefills"][what] = dict(arch=arch, m=m_rows, layers=model.cfg.n_layers,
+                                         device_ms=device_ms, enqueue_ms=enqueue_ms,
+                                         launches=launches, body_launches=body_launches,
+                                         path=body(m_rows, 2))
+            del model, params, state
+            torch.cuda.empty_cache()
     out["build_count"] = build.BUILD_COUNT
     return out
 
@@ -138,7 +180,9 @@ def _key(row: dict) -> tuple:
 
 
 def _summary(runs: list[dict]) -> dict:
-    """Every row and step beside the parent's and the change's medians."""
+    """Every row, step and prefill beside the parent's and the change's
+    medians; per body (the change's ``path``), the rows faster than the
+    parent in both change runs and the range of the change's ratio."""
     by_arm: dict = {"parent": [], "change": []}
     for r in runs:
         by_arm[r["arm"]].append(r)
@@ -150,7 +194,9 @@ def _summary(runs: list[dict]) -> dict:
         parent, change = statistics.median(ms["parent"]), statistics.median(ms["change"])
         rows.append(dict(zip(("kernel", "m", "k", "n", "limbs"), key), path=row["path"],
                          parent_ms=ms["parent"], change_ms=ms["change"],
-                         change_over_parent=change / parent, bound_ms=row["bound_ms"],
+                         change_over_parent=change / parent,
+                         faster_in_both=max(ms["change"]) < min(ms["parent"]),
+                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                          share_of_bound_parent=row["bound_ms"] / parent,
                          share_of_bound_change=row["bound_ms"] / change,
                          library_f32_ms=row["library_f32_ms"],
@@ -160,22 +206,32 @@ def _summary(runs: list[dict]) -> dict:
         steps[arch] = {f"{arm}_{what}": [run["steps"][arch][what] for run in by_arm[arm]]
                        for arm in by_arm
                        for what in ("replay_event_ms", "kernel_ms_per_step", "gemm_ms_per_step")}
-    skinny = [r for r in rows if r["path"] == "skinny"]
-    other = [r for r in rows if r["path"] != "skinny"]
-    return {"summary": True, "rows": rows, "steps": steps,
-            "skinny_rows_faster_than_parent": sum(r["change_over_parent"] < 1 for r in skinny),
-            "skinny_rows": len(skinny),
-            "other_rows_max_change_over_parent": max((r["change_over_parent"] for r in other),
-                                                     default=None),
-            "other_rows_min_change_over_parent": min((r["change_over_parent"] for r in other),
-                                                     default=None)}
+    prefills = {}
+    for what, rec in by_arm["change"][0].get("prefills", {}).items():
+        ms = {arm: [run["prefills"][what]["device_ms"] for run in by_arm[arm]] for arm in by_arm}
+        prefills[what] = dict(path=rec["path"], launches=rec["launches"],
+                              body_launches=rec.get("body_launches"),
+                              parent_device_ms=ms["parent"], change_device_ms=ms["change"],
+                              change_over_parent=(statistics.median(ms["change"])
+                                                  / statistics.median(ms["parent"])))
+    bodies = {}
+    for path in sorted({r["path"] for r in rows}):
+        ratios = [r["change_over_parent"] for r in rows if r["path"] == path]
+        bodies[path] = dict(rows=len(ratios),
+                            faster_in_both=sum(r["faster_in_both"] for r in rows
+                                               if r["path"] == path),
+                            min_change_over_parent=min(ratios),
+                            max_change_over_parent=max(ratios))
+    return {"summary": True, "rows": rows, "steps": steps, "prefills": prefills,
+            "bodies": bodies}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of the earlier tree")
     ap.add_argument("--out", default=None, help="also append every JSON line to this file")
-    ap.add_argument("--tasks", default="kernels,steps", help="kernels, steps or both")
+    ap.add_argument("--tasks", default="kernels,steps,prefills",
+                    help="comma-separated subset of: kernels, steps, prefills")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     tasks = [t for t in args.tasks.split(",") if t]
