@@ -105,7 +105,12 @@ from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
 from repro_torch.core.policy import PRESETS  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.distributed import compress, pipeline  # noqa: E402
-from repro_torch.distributed.sharding import put  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    decode_state_shardings,
+    input_shardings,
+    param_shardings,
+    put,
+)
 from repro_torch.core.limb import limb_product_terms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
@@ -291,6 +296,15 @@ DIST_CKPT_DIR = os.path.join(_ROOT, "build", "dist_ckpt")
 DIST_TOL = 2.0**-14
 DIST_TIMED_PAIRS = 3
 PIPE_MICROBATCHES = 4
+#: the distributed phase's MoE arm: 1 of Phi-3.5-MoE's 32 layers at full
+#: width (6.2 GB of f32 weights, of them 5.0 GB of experts) with int8 AdamW
+#: moments; a step holds two states, the gradients and AdamW's temporaries
+#: of each (1, 16, 4096, 6400) expert leaf.  At 2 layers the step ran out of
+#: the card's 79.18 GiB (72.0-74.2 GiB allocated on an H100 80GB HBM3).
+#: A prefill of MOE_MESH_PROMPT tokens and MOE_MESH_DECODE cached steps of
+#: MOE_MESH_ROWS rows
+MOE_MESH_LAYERS = 1
+MOE_MESH_ROWS, MOE_MESH_PROMPT, MOE_MESH_DECODE = 4, 16, 3
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
 
@@ -3251,7 +3265,15 @@ def phase_distributed(params_cache, card: str) -> dict:
         against its own on the gathered state; (c)'s step's on the restored
         state against the (1, 1) mesh's on the saved one: both report the
         loss before their update);
-    (f) no kernel launched and nothing built."""
+    (g) the MoE layer over the (1, 1) mesh: ``phi3.5-moe-42b-a6.6b`` at full
+        width, MOE_MESH_LAYERS of its 32 layers, ``native_f32`` with int8
+        AdamW moments, the same batch: two steps sharded against unsharded
+        (losses and parameters bit for bit, else within DIST_TOL), a
+        prefill and MOE_MESH_DECODE cached decode steps on the mesh against
+        unsharded (logits bit for bit, else within DIST_TOL), and step wall
+        ms in turns (DIST_TIMED_PAIRS pairs, each step from the first
+        state); it runs first, before the qwen arms;
+    (f) no kernel launched and nothing built in (a)-(e) and (g)."""
     release()
     builds = build.BUILD_COUNT
     native = full_width_model(PRESETS["native_f32"])
@@ -3266,6 +3288,10 @@ def phase_distributed(params_cache, card: str) -> dict:
     mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
     arms: dict = {}
     build.reset_launch_counts()
+
+    # (g) the MoE layer over the mesh
+    arms["g_moe"] = moe_mesh_arm(mesh)
+    release()
 
     # (a) sharded against unsharded, 2 steps from one state
     tcfg = train_config(6)
@@ -3442,6 +3468,107 @@ def phase_distributed(params_cache, card: str) -> dict:
     return {}
 
 
+def moe_mesh_arm(mesh) -> dict:
+    """The distributed phase's arm (g) (see ``phase_distributed``).  One
+    state at a time beside the parameters: the unsharded run's parameters
+    after its two steps are held on the host while the sharded run steps."""
+    t_arm = time.perf_counter()
+    release()
+    entry_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model = full_width_model(PRESETS["native_f32"], MOE_MESH_LAYERS, arch=MOE_ARCH)
+    cfg = model.cfg
+    batch = put_batch_on("cuda")(
+        SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0).next_batch())
+    tcfg = train_config(6)
+    tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+        tcfg.optimizer, quantize_moments=True))
+    plain_step = make_train_step(model, tcfg)
+    mesh_step = make_train_step(model, tcfg, mesh)
+
+    def first_state(sharded: bool):
+        """The seed's state (made anew: a step holds no other parameters)."""
+        params = model.init(0)
+        state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+        return put(state, state_shardings(params, cfg, mesh, tcfg)) if sharded else state
+
+    losses: dict = {"unsharded": [], "sharded": []}
+    walls: dict = {"unsharded": [], "sharded": []}
+    want = None
+    for name, fn in (("unsharded", plain_step), ("sharded", mesh_step)):
+        s = first_state(name == "sharded")
+        for _ in range(2):
+            s, m, ms = timed_step(fn, s, batch)
+            losses[name].append(float(m["loss"]))
+        leaves = [x.full_tensor() if name == "sharded" else x for x in tree.leaves(s["params"])]
+        if want is None:
+            want = [x.cpu() for x in leaves]
+        else:
+            got = [x.cpu() for x in leaves]
+        del s, leaves
+        release()
+    bitwise = losses["sharded"] == losses["unsharded"] and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    param_gap = leaf_gap(got, want)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["sharded"], losses["unsharded"]))
+    del got, want
+    out = dict(arch=MOE_ARCH, layers=MOE_MESH_LAYERS, d_model=cfg.d_model, d_ff=cfg.d_ff,
+               experts=cfg.moe_experts, top_k=cfg.moe_top_k, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               moments="int8", losses=losses, bitwise_equal=bitwise,
+               param_gap_over_scale=param_gap, loss_gap_rel=loss_gap, tolerance=DIST_TOL)
+    check(bitwise or (param_gap <= DIST_TOL and loss_gap <= DIST_TOL),
+          f"distributed (g): steps {out}")
+
+    # a prefill and cached decode steps, unsharded and on the mesh
+    params = model.init(0)
+    tokens = batch["tokens"][:MOE_MESH_ROWS, :MOE_MESH_PROMPT + MOE_MESH_DECODE]
+    chunks = [tokens[:, :MOE_MESH_PROMPT]] + [
+        tokens[:, i:i + 1] for i in range(MOE_MESH_PROMPT, tokens.shape[1])]
+    max_len = MOE_MESH_PROMPT + MOE_MESH_DECODE
+    state = model.init_decode_state(MOE_MESH_ROWS, max_len)
+    plain_logits = []
+    for t in chunks:
+        logits, state = model.decode_step(params, t, state)
+        plain_logits.append(logits)
+    state = model.init_decode_state(MOE_MESH_ROWS, max_len)
+    p_on = put(params, param_shardings(params, cfg, mesh))
+    s_on = put(state, decode_state_shardings(state, cfg, mesh))
+    mesh_logits = []
+    with mesh_scope(mesh):
+        for t in chunks:
+            logits, s_on = model.decode_step(p_on, put(t, input_shardings(t, mesh)), s_on)
+            mesh_logits.append(logits.full_tensor())
+    dec_bitwise = all(torch.equal(a, b) for a, b in zip(mesh_logits, plain_logits))
+    dec_gap = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(mesh_logits, plain_logits))
+    out["decode"] = dict(rows=MOE_MESH_ROWS, prompt=MOE_MESH_PROMPT, steps=MOE_MESH_DECODE,
+                         bitwise_equal=dec_bitwise, logit_gap_over_scale=dec_gap)
+    check(dec_bitwise or dec_gap <= DIST_TOL, f"distributed (g): decode {out['decode']}")
+    del p_on, s_on, state, plain_logits, mesh_logits, params
+    release()
+
+    # step wall in turns, each step from the first state (the sharded one
+    # shares the unsharded one's tensors: a one-rank layout copies nothing)
+    starts = {"unsharded": first_state(False)}
+    starts["sharded"] = put(starts["unsharded"], state_shardings(
+        starts["unsharded"]["params"], cfg, mesh, tcfg))
+    for i in range(DIST_TIMED_PAIRS):
+        order = ("unsharded", "sharded") if i % 2 == 0 else ("sharded", "unsharded")
+        for name in order:
+            fn = mesh_step if name == "sharded" else plain_step
+            _, _, ms = timed_step(fn, starts[name], batch)
+            walls[name].append(ms)
+            release()
+    del starts
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    out.update(step_wall_ms=walls, step_wall_ms_median=med,
+               sharded_over_unsharded=med["sharded"] / med["unsharded"],
+               device_mem_at_entry_gb=entry_gb,
+               peak_device_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_arm)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
@@ -3452,7 +3579,8 @@ def phase_distributed(params_cache, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the production dry-run cells the cost phase runs on this machine's CPU
-DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"))
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k"))
 #: their policy: one f32 product a site keeps the phase near two minutes
 #: (``paper_baseline``'s limb algebra makes the train cell's trace ~4x longer;
 #: the full sweep runs it)

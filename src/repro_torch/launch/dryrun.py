@@ -137,6 +137,18 @@ def trace_cell(cell: dict, mesh) -> tuple[op_cost.CostRecorder, dict, float]:
     return rec, memory, time.perf_counter() - t0
 
 
+def collectives_by_axis(cost, mesh) -> dict[str, float]:
+    """A cost's collective bytes by kind and the mesh axis they cross
+    (``"all-gather over data"``); a group that is no single axis of
+    ``mesh`` is named by its process-group name."""
+    axes = {mesh.get_group(name).group_name: name for name in mesh.mesh_dim_names}
+    out: dict[str, float] = {}
+    for (kind, group), nbytes in sorted(cost.by_group.items(), key=str):
+        key = f"{kind} over {axes.get(group, group)}"
+        out[key] = out.get(key, 0.0) + nbytes
+    return out
+
+
 def _cell_id(arch, shape_name, multi_pod, policy, grad_compression, kv_int8, smoke) -> str:
     cell_id = f"{arch}__{shape_name}__{'pod2x16x16' if multi_pod else 'pod16x16'}__{policy}"
     for on, tag in ((grad_compression, "gradcomp"), (kv_int8, "kvint8"), (smoke, "smoke")):
@@ -171,6 +183,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy: str = "paper_b
             mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
             cell = build_cell(cfg, shape, mesh, grad_compression=grad_compression)
             rec, memory, t_trace = trace_cell(cell, mesh)
+            by_axis = collectives_by_axis(rec.cost, mesh)
         cost = rec.cost
         terms = op_cost.roofline_terms(cost)
         params = cell["args"][0]["params"] if shape.kind == "train" else cell["args"][0]
@@ -184,6 +197,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, policy: str = "paper_b
             n_events=rec.n_events,
             memory=memory,
             roofline=terms,
+            collective_by_axis=by_axis,
             params=counts,
             model_flops_global=mf,
             useful_flops_ratio=mf / (cost.flops * chips) if cost.flops else 0.0,

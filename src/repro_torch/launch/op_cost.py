@@ -39,7 +39,14 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.oprecord import VIEWS, WRITTEN, Event, OpRecorder, TensorMeta
+from repro_torch.oprecord import (
+    COLLECTIVE_NAMESPACES,
+    VIEWS,
+    WRITTEN,
+    Event,
+    OpRecorder,
+    TensorMeta,
+)
 from repro_torch.plan.cost import F32_FLOPS, HBM_BW, NVLINK_BW, PEAK_FLOPS
 
 
@@ -94,6 +101,8 @@ class Cost:
     hbm_bytes: float = 0.0
     collective_bytes: float = 0.0
     by_collective: dict = dataclasses.field(default_factory=lambda: defaultdict(float))
+    #: collective bytes by (kind, process group name)
+    by_group: dict = dataclasses.field(default_factory=lambda: defaultdict(float))
     n_collectives: int = 0
     flops_by_dtype: dict = dataclasses.field(default_factory=lambda: defaultdict(float))
 
@@ -126,6 +135,7 @@ def _fold(c: Cost, ev: Event) -> None:
         out_b = sum(t.nbytes for t in ev.outputs)
         c.collective_bytes += out_b
         c.by_collective[kind] += out_b
+        c.by_group[(kind, ev.group)] += out_b
         c.n_collectives += 1
     if flops:
         c.flops += flops
@@ -137,7 +147,7 @@ def _op_terms(ev: Event) -> tuple[float, float, str | None, torch.dtype | None]:
     base = op_base(ev.name)
     ns = ev.name.split(".")[0]
     out_b = sum(t.nbytes for t in ev.outputs)
-    if ns in ("_c10d_functional", "c10d", "c10d_functional") and base in _COLLECTIVES:
+    if ns in COLLECTIVE_NAMESPACES and base in _COLLECTIVES:
         return 2.0 * out_b, 0.0, _COLLECTIVES[base], None
     if base in DOT_OPS:
         dt = ev.inputs[-1].dtype if ev.inputs else None

@@ -22,16 +22,14 @@ import torch
 
 from repro_torch import tree
 from repro_torch.distributed.sharding import (
-    NamedSharding,
     decode_state_shardings,
     input_shardings,
     param_shardings,
-    replicated,
 )
 from repro_torch.models import build_model
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import adamw
-from repro_torch.train.step import TrainConfig, make_train_step
+from repro_torch.train.step import TrainConfig, make_train_step, state_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,26 +158,7 @@ def _train_cell(model, cfg, shape, mesh, data, params, grad_compression) -> dict
     state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
     if grad_compression:
         state["residual"] = tree.map_tree(torch.zeros_like, params)
-    from repro_torch.train.step import state_mesh
-
-    smesh = state_mesh(mesh, tcfg)
-    p_shard = param_shardings(params, cfg, smesh)
-    if quant_moments:
-        # quantized moments block along the LAST dim: (..., D/B, B).  Inherit
-        # the param's leading-dim sharding (experts stay EP-sharded); the two
-        # trailing block dims replicate.
-        def qm(leaf, sharding):
-            lead = tuple(sharding.spec)[: max(len(leaf.shape) - 1, 0)]
-            q = NamedSharding(smesh, lead + (None, None))
-            return (q, q)
-
-        m_shard = tree.map_tree(qm, params, p_shard)
-    else:
-        m_shard = p_shard
-    state_shard = {"params": p_shard,
-                   "opt": {"step": replicated(smesh), "m": m_shard, "v": m_shard}}
-    if grad_compression:
-        state_shard["residual"] = p_shard
+    state_shard = state_shardings(params, cfg, mesh, tcfg)
     return {
         "fn": step,
         "args": (state, data),

@@ -54,7 +54,8 @@ class TensorMeta(NamedTuple):
 class Event(NamedTuple):
     """One dispatched op (``kind='op'``, ``name`` the aten overload), one
     hand-kernel launch (``'kernel'``, with the work its wrapper charged), or
-    a mark a module sets for the audits (``'mark'``, e.g. ``switch``)."""
+    a mark a module sets for the audits (``'mark'``, e.g. ``switch``).
+    ``group``: the name of the process group a collective op runs on."""
 
     kind: str
     name: str
@@ -63,6 +64,12 @@ class Event(NamedTuple):
     flops: float = 0.0
     nbytes: float = 0.0
     dtype: torch.dtype | None = None
+    group: str | None = None
+
+
+#: the namespaces of the collective ops, whose last string argument names
+#: their process group
+COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
 
 
 #: the active recorder, or None (the wrappers' only cost when none is)
@@ -195,8 +202,11 @@ class OpRecorder(TorchDispatchMode):
             self._allocated(outs)
         if self.held is not None:
             self.held.append((ins, outs))
+        group = None
+        if func.namespace in COLLECTIVE_NAMESPACES:
+            group = next((a for a in reversed(args) if isinstance(a, str)), None)
         self.add(Event("op", name, tuple(meta(t) for t in ins),
-                       tuple(meta(t) for t in outs)))
+                       tuple(meta(t) for t in outs), group=group))
         return out
 
     def _allocated(self, outs) -> None:

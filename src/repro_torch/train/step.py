@@ -47,6 +47,7 @@ from repro_torch.adapt.runtime_policy import DeviceModes, bind_modes
 from repro_torch.distributed.compress import ef_reduce_tree, pod_free
 from repro_torch.distributed.sharding import (
     BATCH_AXES,
+    NamedSharding,
     axis_sizes,
     constrain,
     input_shardings,
@@ -133,15 +134,25 @@ def value_and_grad(loss_fn: Callable) -> Callable:
 def _microbatch(x: Tensor, n: int, i: int) -> Tensor:
     """Rows [i B/n, (i + 1) B/n) of ``x``.  A DTensor whose rows are sharded
     is gathered over the mesh dims that shard them, sliced, and laid out as
-    before, so each microbatch is spread over every rank (the rows of one
-    microbatch need not divide into whole shards)."""
+    ``input_shardings`` lays out a batch of that many rows: over those mesh
+    dims in order while their product divides the rows, replicated over the
+    rest (so each microbatch is spread over as many ranks as it fills; 16
+    rows of Kimi-K2's 256 over 'pod' x 'data' = 32 ranks go over 'pod')."""
     rows = x.shape[0] // n
     if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
                                       for p in x.placements):
         mesh, placements = x.device_mesh, tuple(x.placements)
         whole = x.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == 0
                                       else p for p in placements])
-        return whole[i * rows:(i + 1) * rows].redistribute(mesh, placements)
+        fitted, ranks = [], 1
+        for p, size in zip(placements, mesh.shape):
+            if isinstance(p, Shard) and p.dim == 0:
+                if rows % (ranks * size):
+                    p = Replicate()
+                else:
+                    ranks *= size
+            fitted.append(p)
+        return whole[i * rows:(i + 1) * rows].redistribute(mesh, fitted)
     return x.reshape((n, rows) + tuple(x.shape[1:]))[i]
 
 
@@ -190,10 +201,22 @@ def state_shardings(params: Any, cfg, mesh, tcfg: TrainConfig) -> dict:
     """The reference launcher's shardings of the training state, on
     ``state_mesh(mesh, tcfg)``: parameters and both moments by
     ``param_shardings``, the step replicated, EF residuals as the
-    parameters."""
+    parameters.  Quantized moments (``quantize_moments``: int8 codes and
+    scales blocked along the last dim, ``(..., D/B, B)`` and ``(..., D/B,
+    1)``) keep their parameter's layout of the leading dims (experts stay
+    on 'model'); the two block dims replicate, as the reference's dry run
+    lays them out."""
     smesh = state_mesh(mesh, tcfg)
     ps = param_shardings(params, cfg, smesh)
-    out = {"params": ps, "opt": {"step": replicated(smesh), "m": ps, "v": ps}}
+    ms = ps
+    if tcfg.optimizer.quantize_moments:
+        def blocks(leaf, sharding):
+            lead = tuple(sharding.spec)[:max(len(leaf.shape) - 1, 0)]
+            q = NamedSharding(smesh, lead + (None, None))
+            return (q, q)
+
+        ms = tree.map_tree(blocks, params, ps)
+    out = {"params": ps, "opt": {"step": replicated(smesh), "m": ms, "v": ms}}
     if tcfg.grad_compression:
         out["residual"] = ps
     return out

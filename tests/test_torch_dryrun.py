@@ -2,8 +2,9 @@
 reference's: the cells' tables, stand-in shapes and dtypes for all ten archs
 x four shapes, parameter counts and MODEL_FLOPS at full size (shapes only,
 nothing allocated), the counterpart of ``test_dryrun_cell_on_8_devices`` (a
-4x2 fake mesh) and one ``run_cell`` record at the smoke size on the
-production mesh.  Fake process groups run in a subprocess (one PyTorch
+4x2 fake mesh; also each MoE arch's train, prefill and decode cells, which
+the reference traces there too) and one ``run_cell`` record at the smoke
+size on the production mesh.  Fake process groups run in a subprocess (one PyTorch
 thread, 300 s at most), so none outlives a test."""
 import json
 import os
@@ -104,6 +105,62 @@ def test_dryrun_cell_on_8_devices():
             rec, memory, _ = trace_cell(cell, mesh)
         assert rec.cost.flops > 0 and rec.cost.collective_bytes > 0
         assert memory["argument_bytes"] > 0 and memory["temp_bytes"] > 0
+        print("flops/dev:", rec.cost.flops)
+    """)
+    assert "flops/dev:" in out
+
+
+#: the MoE cells at the smoke size: (kind, seq, batch)
+MOE_CELLS = (("train", 64, 32), ("prefill", 64, 8), ("decode", 64, 8))
+
+
+@pytest.mark.parametrize("kind,seq,batch", MOE_CELLS)
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])
+def test_moe_cell_on_8_devices(arch, kind, seq, batch):
+    """The MoE layer's mesh path traced on a 4x2 fake mesh: experts over
+    'model', their D or F gathered over 'data'.  A train cell takes two
+    microbatches (the archs' own 8 and 16 only repeat the same layers; the
+    production cells keep them), so that each cell traces in seconds."""
+    out = _run(f"""
+        import json, torch
+        torch.set_num_threads(1)
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import shapes
+        from repro_torch.launch.dryrun import collectives_by_axis, fake_world, trace_cell
+        shapes.ACCUM[{arch!r}] = 2
+        cfg = get_smoke_config({arch!r})
+        with fake_world(8):
+            mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+            cell = shapes.build_cell(cfg, shapes.ShapeSpec("t", {kind!r}, {seq}, {batch}), mesh)
+            rec, memory, _ = trace_cell(cell, mesh)
+            by_axis = collectives_by_axis(rec.cost, mesh)
+        print(json.dumps([rec.cost.flops, rec.cost.collective_bytes, by_axis]))
+    """)
+    flops, coll, by_axis = json.loads(out.strip().splitlines()[-1])
+    assert flops > 0 and coll > 0
+    assert by_axis.get("all-reduce over model", 0) > 0, by_axis
+    assert by_axis.get("all-gather over data", 0) > 0, by_axis
+    assert sum(by_axis.values()) == coll
+
+
+def test_microbatches_of_fewer_rows_than_batch_ranks_trace():
+    """A train cell whose microbatches hold fewer rows than the batch's
+    ('pod', 'data') ranks (qwen's two microbatches of 2 rows on a 2x2x2
+    mesh, as Kimi-K2's 16 of 256 rows on ``pod2x16x16``): each microbatch
+    is laid out over the ranks its rows fill."""
+    out = _run("""
+        import torch
+        torch.set_num_threads(1)
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.launch import shapes
+        from repro_torch.launch.dryrun import fake_world, trace_cell
+        cfg = get_smoke_config("qwen1.5-0.5b")
+        with fake_world(8):
+            mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+            cell = shapes.build_cell(cfg, shapes.ShapeSpec("t", "train", 32, 4), mesh)
+            rec, _, _ = trace_cell(cell, mesh)
         print("flops/dev:", rec.cost.flops)
     """)
     assert "flops/dev:" in out

@@ -356,7 +356,176 @@ def shardwise(rank: int, inputs: dict, out: dict, d: str) -> None:
     out["decode_rg_bf16"] = _decode_gap("recurrentgemma-9b", mesh, "bfloat16", tokens)
 
 
-SCENARIOS = {"step_2x2": step_2x2, "pod": pod, "shardwise": shardwise}
+#: the MoE archs of the ``moe`` scenario, by the key of their inputs
+MOE_ARCHS = {"phi": "phi3.5-moe-42b-a6.6b", "kimi": "kimi-k2-1t-a32b"}
+
+
+class _SlotSpy:
+    """Records each (ids, slots) the MoE layer's ``_slots`` computes while
+    active (the routing of every layer, in call order)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.calls = moe, moe._slots, []
+
+    def __enter__(self):
+        def spy(ids, e, capacity):
+            slot = self.orig(ids, e, capacity)
+            self.calls.append((ids.clone(), slot.clone(), capacity))
+            return slot
+
+        self.moe._slots = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._slots = self.orig
+
+
+def _moe_layer(tag: str, inputs: dict, mesh) -> dict:
+    """The first MoE layer of the arch's parameters alone (its routed
+    experts: the shared expert is the dense SwiGLU's path), unsharded and
+    with its weights laid out by the rules and its input by batch, at a
+    train and a decode shape: output, auxiliary loss and gradients, and
+    the routing each run computed."""
+    from repro_torch.models import moe
+    from repro_torch.models.lm import layer_params
+
+    arch = MOE_ARCHS[tag]
+    cfg = get_smoke_config(arch).with_policy(NATIVE_F32)
+    flat = {k[len(f"params_{tag}/"):]: inputs[k] for k in inputs
+            if k.startswith(f"params_{tag}/")}
+    layers = params_from_jax(_unflatten(flat), device="cpu")["layers"]
+    key = next(k for k in layers if k.endswith("_moe"))
+    p = {k: v for k, v in layer_params(layers[key], 0)["moe"].items() if k != "shared"}
+    on = put(p, param_shardings({"moe": p}, cfg, mesh)["moe"])
+    coord = mesh.get_coordinate()
+    out = {"layer_placements": sorted({str(tuple(on[k].placements))
+                                        for k in ("gate", "up", "down")})}
+    for shape, x in (("train", inputs["moe_x"]), ("decode", inputs["moe_x"][:, :1])):
+        x = torch.from_numpy(x)
+        runs = []
+        for params, xs in ((p, x), (on, NamedSharding(mesh, (("data",), None, None)).put(x))):
+            leaves = tree.leaves(params)
+            live = [w.detach().requires_grad_(True) for w in leaves]
+            xs = xs.detach().requires_grad_(True)
+            with tstep.mesh_scope(mesh), _SlotSpy() as spy:
+                y, aux = moe.moe_apply(tree.unflatten(params, live), xs, cfg)
+                probe = torch.from_numpy(inputs["moe_probe"]).reshape(1, 1, -1)
+                grads = torch.autograd.grad((y * probe).sum() + aux, [xs, *live])
+            full = [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
+            y = y.full_tensor() if isinstance(y, DTensor) else y
+            aux = aux.full_tensor() if isinstance(aux, DTensor) else aux
+            runs.append((y, float(aux), full, spy.calls))
+        (y0, a0, g0, c0), (y1, a1, g1, c1) = runs
+        rows = x.shape[0] // mesh.shape[0]
+        r0 = coord[0] * rows
+        ((ids0, slot0, cap0),), ((ids1, slot1, cap1),) = c0, c1
+        if shape == "train":  # this rank's rows' groups
+            per_row = ids0.shape[0] // x.shape[0]
+            ids0, slot0 = (t[r0 * per_row:(r0 + rows) * per_row] for t in (ids0, slot0))
+        out[f"layer_{shape}"] = {
+            "out_equal": bool(torch.equal(y0, y1)),
+            "aux": [a0, a1],
+            "x_grad_equal": bool(torch.equal(g0[0], g1[0])),
+            "w_grad_gap": max(float((b - a).abs().max() / a.abs().max())
+                              for a, b in zip(g0[1:], g1[1:])),
+            "routing_equal": bool(torch.equal(ids0, ids1) and torch.equal(slot0, slot1)),
+            "capacity": [cap0, cap1],
+            "grad_placements": sorted({str(tuple(g.placements)) for g in grads[1:]
+                                       if g.dim() == 3}),
+        }
+    return out
+
+
+def _kept(ids: torch.Tensor, groups: int, cfg) -> int:
+    """Assignments kept when the (1, B, K) ids of one decode step are routed
+    as ``groups`` groups of B / groups rows each."""
+    from repro_torch.models import moe
+
+    b = ids.shape[1]
+    part = ids.reshape(groups, b // groups, -1)
+    slot = moe._slots(part, cfg.moe_experts, moe.capacity_for(b // groups, cfg))
+    return int((slot < cfg.moe_experts * moe.capacity_for(b // groups, cfg)).sum())
+
+
+def moe_scenario(rank: int, inputs: dict, out: dict, d: str) -> None:
+    """The MoE layer over a (2, 2) ('data', 'model') mesh, for Phi-3.5-MoE
+    and Kimi-K2 (a dense first layer, a shared expert) at their smoke sizes:
+    (a) two sharded train steps from the numpy state and batch, each against
+    the unsharded step from the same state (the second from the sharded
+    run's state after the first, gathered: AdamW's first update moves an
+    element by ~lr whatever its gradient, so a bf16 flip that turns a tiny
+    gradient's sign parts two runs' parameters by 2 lr, and their next
+    losses by ~1e-3), the gradients against the unsharded ones, the expert
+    leaves' placements and the replicas after the steps; (b) the first MoE layer
+    alone on the same inputs both ways (``_moe_layer``); (c) cached decode
+    at B = 4 on the mesh against unsharded (``_decode_gap``), with the
+    routing of every decode step and the assignments one global group keeps
+    against two groups of the ranks' own rows."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    batch = _batch(inputs)
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(lr=LR, warmup_steps=0))
+    for tag, arch in MOE_ARCHS.items():
+        cfg = get_smoke_config(arch).with_policy(NATIVE_F32)
+        model = build_model(cfg, device="cpu")
+        flat = {k[len(f"params_{tag}/"):]: inputs[k] for k in inputs
+                if k.startswith(f"params_{tag}/")}
+        params = params_from_jax(_unflatten(flat), device="cpu")
+        state = {"params": params, "opt": adamw.init_state(params, tcfg.optimizer)}
+        rec: dict = {"unsharded_losses": [], "unsharded_grad_norms": [],
+                     "sharded_losses": [], "sharded_grad_norms": []}
+        step = tstep.make_train_step(model, tcfg)
+        sharded = put(state, tstep.state_shardings(params, cfg, mesh, tcfg))
+        sstep = tstep.make_train_step(model, tcfg, mesh)
+        s = sharded
+        for _ in range(2):
+            _, m = step(tree.map_tree(lambda x: x.full_tensor(), s), batch)
+            rec["unsharded_losses"].append(float(m["loss"]))
+            rec["unsharded_grad_norms"].append(float(m["grad_norm"]))
+            s, m = sstep(s, batch)
+            rec["sharded_losses"].append(float(m["loss"]))
+            rec["sharded_grad_norms"].append(float(m["grad_norm"]))
+        rec["grad_gap"] = _grad_gap(model, tcfg, params, sharded["params"], batch, mesh)
+        experts = {k: x for seg, layer in s["params"]["layers"].items()
+                   if seg.endswith("_moe") for k, x in layer["moe"].items()
+                   if k in ("gate", "up", "down")}
+        with tstep.mesh_scope(mesh):
+            g, _ = tstep.make_grad_fn(model, tcfg)(sharded["params"],
+                                                   tstep.laid_out(batch, mesh))
+            g = tstep.like_params(g, sharded["params"])
+        g_experts = {k: x for seg, layer in g["layers"].items()
+                     if seg.endswith("_moe") for k, x in layer["moe"].items()
+                     if k in ("gate", "up", "down")}
+        rec["expert_placements"] = {k: str(tuple(x.placements)) for k, x in experts.items()}
+        rec["expert_grad_placements"] = {k: str(tuple(x.placements))
+                                         for k, x in g_experts.items()}
+        rec["expert_local_shapes"] = {k: list(x.to_local().shape) for k, x in experts.items()}
+        rec["replicas"] = _replicas(s, mesh)
+        rec.update(_moe_layer(tag, inputs, mesh))
+        if tag == "phi":  # eight microbatches of one row: each replicated over 'data'
+            t8 = dataclasses.replace(tcfg, accum_steps=8)
+            _, m = tstep.make_train_step(model, t8)(state, batch)
+            _, ms = tstep.make_train_step(model, t8, mesh)(sharded, batch)
+            rec["accum8"] = {"loss": [float(m["loss"]), float(ms["loss"])],
+                             "grad_norm": [float(m["grad_norm"]), float(ms["grad_norm"])]}
+
+        tokens = batch["tokens"][:4, :12]
+        with _SlotSpy() as spy:
+            rec["decode"] = _decode_gap(arch, mesh, "bfloat16", tokens)
+        # the calls: the unsharded run's then the sharded run's, layer by layer
+        steps = [c for c in spy.calls if c[0].shape[0] == 1 and c[0].shape[1] == 4]
+        half = len(steps) // 2
+        rec["decode"]["routing_calls"] = [half, len(steps) - half]
+        rec["decode"]["routing_equal"] = all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(steps[:half], steps[half:]))
+        rec["decode"]["kept_one_group"] = sum(_kept(c[0], 1, cfg) for c in steps[:half])
+        rec["decode"]["kept_per_rank_groups"] = sum(_kept(c[0], 2, cfg) for c in steps[:half])
+        out[tag] = rec
+
+
+SCENARIOS = {"step_2x2": step_2x2, "pod": pod, "shardwise": shardwise, "moe": moe_scenario}
 
 
 def main() -> None:

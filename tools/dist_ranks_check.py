@@ -7,9 +7,9 @@ JAX needed):
     python3 tools/dist_ranks_check.py [--out build/dist_ranks.jsonl]
 
 It makes the inputs of the rank programs in ``tests/torch_dist_ranks.py``
-with numpy and the port alone (qwen1.5-0.5b's smoke parameters from the
-port's ``init(0)``, a reference-format checkpoint written by the port's
-manager), runs each scenario as four gloo ranks on the CPU, and prints one
+with numpy and the port alone (qwen1.5-0.5b's, Phi-3.5-MoE's and Kimi-K2's
+smoke parameters from the port's ``init(0)``, a reference-format checkpoint
+written by the port's manager), runs each scenario as four gloo ranks on the CPU, and prints one
 JSON line per rank: its exit code, its record as far as it got (the
 replica hashes left out) and, when it failed, the end of its output.  The
 tests hold the records against the reference's results; this script shows
@@ -37,7 +37,9 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 WORLD = 4
-SCENARIOS = ("step_2x2", "pod", "shardwise")
+SCENARIOS = ("step_2x2", "pod", "shardwise", "moe")
+#: the ``moe`` scenario's archs, by the key of their inputs
+MOE_ARCHS = {"phi": "phi3.5-moe-42b-a6.6b", "kimi": "kimi-k2-1t-a32b"}
 #: the pipeline's stages, microbatches, rows and width (as the tests')
 S, M, B, D = 4, 6, 2, 16
 
@@ -63,6 +65,12 @@ def make_inputs() -> dict:
         "split_x": rng.standard_normal((6, 64)).astype(np.float32),
     }
     inputs.update({f"params/{k}": v.numpy() for k, v in _flatten(params).items()})
+    inputs["moe_x"] = rng.standard_normal((4, 64, 128)).astype(np.float32)
+    inputs["moe_probe"] = rng.standard_normal(128).astype(np.float32)
+    for tag, arch in MOE_ARCHS.items():
+        moe_params = build_model(get_smoke_config(arch), device="cpu").init(0)
+        inputs.update({f"params_{tag}/{k}": v.numpy()
+                       for k, v in _flatten(moe_params).items()})
     return inputs
 
 
