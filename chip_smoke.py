@@ -40,11 +40,15 @@ kernels must raise, as the reference's ``jax.grad`` through a Pallas kernel
 does, and no kernel launches while training), then trains it over a
 one-rank NCCL ``DeviceMesh`` (``distributed``: the (1, 1) mesh step against
 the unsharded one and its cost, int8 gradient compression over a (1, 1, 1)
-mesh, the S = 1 pipeline, a checkpoint restored onto the mesh), and last
+mesh, the S = 1 pipeline, a checkpoint restored onto the mesh), then
 counts steps with the op recorder (``cost``: the train step on real and
 fake tensors against its measured time, the decode step on the card and
 on the CPU, the analysis gate on the card, two production dry-run cells
-on this machine's CPU).  The limb
+on this machine's CPU), and last runs the five port arms of ``examples/``
+through their ``main()`` at the reference scripts' sizes (``examples``: one
+captured graph of the mode-map kernel replayed at three modes, each replay
+bit-equal to the limb kernel; streamed == batch tokens; a preempted and
+resumed training run against the uninterrupted one).  The limb
 and mode-map kernels are also held and timed at those models' GEMM shapes.  The engine runs its
 decode step, probe and speculative round as CUDA graphs
 (``repro_torch.serve.graphs``); ``serve_static``, ``serve_adapt``,
@@ -69,6 +73,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -221,7 +226,7 @@ PAGED_POOL_SHAPE = (257, 16, 16, 64)
 PHASES = ("device", "kernels", "serve_static", "serve_adapt", "serve_grte",
           "serve_planned", "tune", "serve_spec", "serve_paged", "serve_tenants",
           "serve_ssm", "serve_hybrid", "serve_moe", "serve_configs", "multimodal", "train",
-          "distributed", "cost")
+          "distributed", "cost", "examples")
 #: the recurrent families' models (full width; see their phases for depth)
 SSM_ARCH = "mamba2-2.7b"
 HYBRID_ARCH = "recurrentgemma-9b"
@@ -307,6 +312,15 @@ MOE_MESH_LAYERS = 1
 MOE_MESH_ROWS, MOE_MESH_PROMPT, MOE_MESH_DECODE = 4, 16, 3
 #: where the tune phase writes its measured table (git-ignored)
 TUNE_TABLE_PATH = os.path.join(_ROOT, "build", "tuning", "gpu.json")
+#: the examples phase: the port arms ``examples/<name>_torch.py``, each run
+#: through its ``main()`` at the reference script's sizes, seeds and steps
+EXAMPLES = ("quickstart", "strassen_demo", "serve_batched", "train_lm",
+            "autoprecision_train")
+#: train_lm's preempted run stops after this step; its resume runs the next
+TRAIN_LM_CUT = 150
+#: where the examples phase writes the arms' checkpoints (git-ignored;
+#: removed after) and, without ``--out``, their printed text
+EXAMPLES_DIR = os.path.join(_ROOT, "build", "examples")
 
 KERNEL_INFO = {
     "quantize_mantissa": dict(
@@ -3763,6 +3777,147 @@ def phase_cost(params_cache, card: str) -> dict:
     return dict(out, d_dryrun=cells)
 
 
+# ---------------------------------------------------------------------------
+# the examples' port arms
+# ---------------------------------------------------------------------------
+
+
+def load_example(name: str):
+    """The port arm ``examples/<name>_torch.py`` as a module (the examples
+    are scripts, not a package; loading one runs nothing).  The port's tests
+    load the arms through this function too."""
+    path = os.path.join(_ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def without_arrays(out):
+    """What an arm's ``main`` returned, for the phase line: its tensors and
+    numpy arrays left out, and the dicts they leave empty."""
+    if isinstance(out, dict):
+        kept = {k: without_arrays(v) for k, v in out.items()
+                if not isinstance(v, (torch.Tensor, np.ndarray))}
+        return {k: v for k, v in kept.items() if v != {}}
+    if isinstance(out, (list, tuple)):
+        return [without_arrays(v) for v in out]
+    return out
+
+
+def run_example(name: str, argv: list[str], log_dir: str) -> tuple[dict, dict, float]:
+    """``main(argv)`` of ``examples/<name>_torch.py``, with its printed text
+    appended to ``<log_dir>/<name>.log``; the launch counts zeroed just
+    before and read just after.  Returns (what ``main`` returned, the
+    counts, seconds)."""
+    mod = load_example(name)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(os.path.join(log_dir, f"{name}.log"), "a") as fh, \
+            contextlib.redirect_stdout(fh):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, build.launch_counts(), time.perf_counter() - t0
+
+
+def phase_examples(card: str) -> None:
+    """The five port arms of ``examples/`` on the card, each through its
+    ``main()`` at the reference script's sizes and step counts (their printed
+    text goes to ``<name>.log`` beside ``--out``, else under EXAMPLES_DIR):
+    (a) quickstart: the ladder through the plain limb algebra and the limb
+        kernel (errors falling), ONE captured graph of the mode-map kernel
+        replayed at mode bits 1-3, each replay bit-equal to the limb kernel,
+        the integer product exact, 7 Strassen leaves; the limb and mode-map
+        kernels launched;
+    (b) strassen_demo: paper_4x4, 7 leaf products at each PE mode, errors
+        falling down the ladder;
+    (c) serve_batched: the streamed tokens equal the batch API's, one graph
+        captured, every request complete;
+    (d) train_lm: 300 steps (the loss falls); the same run preempted after
+        TRAIN_LM_CUT steps and resumed for one: its loss equals the
+        uninterrupted run's, bit for bit;
+    (e) autoprecision_train: three 60-step curves, every loss finite.
+    Nothing is built: BUILD_COUNT is 1 after the phase.  The phase line
+    holds each arm's returned numbers (arrays left out), seconds and
+    launches; these launches count on this line only, not on the kernels
+    line, which counts the serving path's.  The phase's seconds and peak
+    device memory, beside what earlier phases still held when it started."""
+    release()
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    log_dir = os.path.dirname(os.path.abspath(_OUT_PATH)) if _OUT_PATH else EXAMPLES_DIR
+    os.makedirs(log_dir, exist_ok=True)
+    for name in EXAMPLES:  # each log holds this run's text only
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(log_dir, f"{name}.log"))
+    ckpt = os.path.join(EXAMPLES_DIR, "ckpt")
+    arms = {}
+
+    qs, counts, s = run_example("quickstart", [], log_dir)
+    rt = qs["runtime"]
+    check(rt["graphs"] == 1 and rt["replays"] == 3,
+          f"examples (a): {rt['graphs']} graphs, {rt['replays']} replays")
+    check(all(rt["bit_equal"].values()), f"examples (a): replays != limb kernel {rt['bit_equal']}")
+    check(counts["limb_matmul"] > 0 and counts["tile_matmul"] > 0,
+          f"examples (a): launches {counts}")
+    for impl in ("xla", "pallas"):
+        errs = [qs["ladder"][m][impl] for m in ("M8", "M16", "M24")]
+        check(errs[0] > errs[1] > errs[2], f"examples (a): {impl} ladder {errs}")
+    check(qs["auto"]["int_exact"] and qs["strassen"]["leaf_products"] == 7,
+          f"examples (a): auto {qs['auto']}, strassen {qs['strassen']}")
+    arms["quickstart"] = {**without_arrays(qs), "s": s, "launches": counts}
+
+    st, counts, s = run_example("strassen_demo", [], log_dir)
+    errs = [st["max_abs_err"][m] for m in ("M8", "M16", "M24")]
+    check(st["leaf_products"] == 7 and set(st["leaf_calls"].values()) == {7}
+          and errs[0] > errs[1] > errs[2], f"examples (b): {st['leaf_calls']} {errs}")
+    arms["strassen_demo"] = {**without_arrays(st), "s": s, "launches": counts}
+
+    sv, counts, s = run_example("serve_batched", [], log_dir)
+    check(sv["stream_equals_batch"], "examples (c): streamed tokens != batch tokens")
+    check(sv["graph_captures"] == 1, f"examples (c): {sv['graph_captures']} graphs captured")
+    check(sv["summary"]["completed"] == sv["requests"] == 6, "examples (c): requests incomplete")
+    arms["serve_batched"] = {**without_arrays(sv), "s": s, "launches": counts}
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        full, counts, s = run_example(
+            "train_lm", ["--fresh", "--ckpt-dir", os.path.join(ckpt, "full")], log_dir)
+        check(full["judged"] and full["improved"] and len(full["losses"]) == 300,
+              f"examples (d): loss {full['first']} -> {full['last']}")
+        base = ["--ckpt-dir", os.path.join(ckpt, "cut")]
+        cut, _, s_cut = run_example(
+            "train_lm", base + ["--fresh", "--stop-at", str(TRAIN_LM_CUT)], log_dir)
+        resumed, counts_r, s_res = run_example(
+            "train_lm", base + ["--resume", "--stop-at", str(TRAIN_LM_CUT + 1)], log_dir)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(cut["checkpoints"][-1] == TRAIN_LM_CUT and resumed["start"] == TRAIN_LM_CUT,
+          f"examples (d): cut {cut['checkpoints']}, resumed at {resumed['start']}")
+    check(resumed["losses"] == [full["losses"][TRAIN_LM_CUT]],
+          f"examples (d): resumed loss {resumed['losses']} != "
+          f"{full['losses'][TRAIN_LM_CUT]} uninterrupted")
+    arms["train_lm"] = {**without_arrays(full), "s": s, "s_cut": s_cut, "s_resume": s_res,
+                        "launches": counts, "launches_resume": counts_r,
+                        "resumed_loss": resumed["losses"][0],
+                        "uninterrupted_loss": full["losses"][TRAIN_LM_CUT]}
+
+    ap, counts, s = run_example("autoprecision_train", [], log_dir)
+    check(all(len(c) == 60 and all(math.isfinite(x) for x in c) for c in ap["curves"].values()),
+          "examples (e): a loss curve is short or not finite")
+    arms["autoprecision_train"] = {**without_arrays(ap), "s": s, "launches": counts}
+
+    check(build.BUILD_COUNT == 1, f"examples: kernel library built {build.BUILD_COUNT} times")
+    phase_s = time.perf_counter() - t_start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit("examples", card=card, arms=arms, log_dir=log_dir, build_count=build.BUILD_COUNT,
+         phase_s=phase_s, peak_device_mem_gb=peak_gb, resident_at_start_gb=resident_gb)
+    say({"examples_s": phase_s, "card": card})
+    say({"examples_peak_device_mem_gb": peak_gb, "resident_at_start_gb": resident_gb,
+         "card": card})
+
+
 def kernels_line(checks, timing, main_counts) -> dict:
     """One entry per kernel: its numbers at the decode shape that dominates
     the serving path (every measured shape is in the ``kernels`` phase line)."""
@@ -3886,6 +4041,8 @@ def main() -> int:
         phase_distributed(params_cache, card)
     if "cost" in phases:
         phase_cost(params_cache, card)
+    if "examples" in phases:
+        phase_examples(card)
     full = all(p in phases for p in PHASES)
     if full:
         for name, c in main_counts.items():

@@ -2,6 +2,7 @@
 set of numpy-made parameters handed to both packages, and the stated
 tolerances."""
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -158,3 +159,23 @@ def spawn_ranks(scenario: str, world: int, d, timeout: float = 300.0) -> list[di
         with open(os.path.join(d, f"rank{r}.json")) as fh:
             outs.append(json.load(fh))
     return outs
+
+
+@functools.lru_cache(maxsize=None)
+def chip_smoke():
+    """``chip_smoke.py`` as a module (loading it runs nothing)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_example(name: str):
+    """The port arm ``examples/<name>_torch.py`` as a module, loaded as
+    ``chip_smoke.py``'s ``examples`` phase loads it."""
+    return chip_smoke().load_example(name)

@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 neither ``jax`` nor the reference package ``repro`` in ``sys.modules``, builds
-nothing and needs neither a GPU nor ``triton``; ``chip_smoke.py`` imports
-neither package."""
+nothing and needs neither a GPU nor ``triton``; ``chip_smoke.py`` and the
+examples' port arms (``examples/*_torch.py``) import neither package."""
 import ast
 import json
 import os
@@ -88,7 +88,19 @@ def test_importing_builds_nothing(import_report):
     assert import_report["BUILD_COUNT"] == 0
 
 
-@pytest.mark.parametrize("rel", ["chip_smoke.py"] + sorted(
+#: the port's scripts outside the package: the chip check and the examples' arms
+SCRIPTS = ["chip_smoke.py"] + sorted(
+    os.path.join("examples", f) for f in os.listdir(os.path.join(ROOT, "examples"))
+    if f.endswith("_torch.py"))
+
+
+def test_every_example_has_its_port_arm():
+    originals = sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                       if f.endswith(".py") and not f.endswith("_torch.py"))
+    assert [os.path.join("examples", f[:-3] + "_torch.py") for f in originals] == SCRIPTS[1:]
+
+
+@pytest.mark.parametrize("rel", SCRIPTS + sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, files in os.walk(os.path.join(SRC, "repro_torch")) for f in files
     if f.endswith(".py")))
