@@ -25,6 +25,7 @@ from repro_torch.core.precision import F32_MODES, DoubleF32
 from repro_torch.core.rmpm import mp_einsum, mp_einsum_runtime, mp_matmul_runtime
 from repro_torch.device import backend_of
 from repro_torch.distributed.sharding import BATCH_AXES, constrain, contiguous_stride, split_dim
+from repro_torch.obs.device import device_span
 from repro_torch.plan import execute, plan_matmul
 
 Tensor = torch.Tensor
@@ -51,54 +52,61 @@ def pmm(x: Tensor, w: Tensor, op: str, policy: PrecisionPolicy) -> Tensor:
     host int over the static paths, or select among them on the device for
     a device scalar (what the engine's captured steps bind).  Only f32-ladder plans are switchable;
     DF32/Strassen plans keep their static path.
+
+    The call is a device span named ``op`` (repro_torch.obs.device), timed
+    only while a recording is open.
     """
-    plan = plan_matmul(
-        tuple(x.shape),
-        tuple(w.shape),
-        mode=policy.mode_for(op),
-        impl=None if policy.impl == "auto" else policy.impl,
-        rounding=policy.rounding,
-        max_depth=policy.max_strassen_depth,
-        backend=backend_of(x.device),
-    )
-    rt_mode = runtime_mode_for(op)
-    if (
-        rt_mode is not None
-        and plan.mode in F32_MODES
-        and plan.dtype == "float32"
-        and not isinstance(x, DoubleF32)
-    ):
-        # runtime reconfiguration wins over the plan's Strassen depth; mode
-        # tables hold concrete modes, so the AUTO operand probe is skipped.
-        # 'native' cannot express a mode switch; xla keeps the host branch
-        impl = "tile" if plan.tile_eligible else "xla"
-        return mp_matmul_runtime(
-            x, w, rt_mode, rounding=plan.rounding,
-            impl=impl, block=plan.block, allow_auto=False, device=x.device,
+    with device_span(op):
+        plan = plan_matmul(
+            tuple(x.shape),
+            tuple(w.shape),
+            mode=policy.mode_for(op),
+            impl=None if policy.impl == "auto" else policy.impl,
+            rounding=policy.rounding,
+            max_depth=policy.max_strassen_depth,
+            backend=backend_of(x.device),
         )
-    return execute(plan, x, w)
+        rt_mode = runtime_mode_for(op)
+        if (
+            rt_mode is not None
+            and plan.mode in F32_MODES
+            and plan.dtype == "float32"
+            and not isinstance(x, DoubleF32)
+        ):
+            # runtime reconfiguration wins over the plan's Strassen depth; mode
+            # tables hold concrete modes, so the AUTO operand probe is skipped.
+            # 'native' cannot express a mode switch; xla keeps the host branch
+            impl = "tile" if plan.tile_eligible else "xla"
+            return mp_matmul_runtime(
+                x, w, rt_mode, rounding=plan.rounding,
+                impl=impl, block=plan.block, allow_auto=False, device=x.device,
+            )
+        return execute(plan, x, w)
 
 
 def pein(eq: str, a: Tensor, b: Tensor, op: str, policy: PrecisionPolicy) -> Tensor:
-    mode = policy.mode_for(op)
-    rt_mode = runtime_mode_for(op)
-    if (
-        rt_mode is not None
-        and mode in F32_MODES
-        and not isinstance(a, DoubleF32)
-        and not isinstance(b, DoubleF32)
-    ):
-        # bound sites always run the limb engine: a 'native' policy impl
-        # (plain f32, mode-blind) cannot express a mode switch
-        impl = policy.impl if policy.impl in ("xla", "pallas", "tile") else "xla"
-        return mp_einsum_runtime(
-            eq, a, b, rt_mode, rounding=policy.rounding, impl=impl,
+    """Policy-routed einsum (``pmm``'s counterpart for any contraction);
+    a device span named ``op``, as ``pmm`` is."""
+    with device_span(op):
+        mode = policy.mode_for(op)
+        rt_mode = runtime_mode_for(op)
+        if (
+            rt_mode is not None
+            and mode in F32_MODES
+            and not isinstance(a, DoubleF32)
+            and not isinstance(b, DoubleF32)
+        ):
+            # bound sites always run the limb engine: a 'native' policy impl
+            # (plain f32, mode-blind) cannot express a mode switch
+            impl = policy.impl if policy.impl in ("xla", "pallas", "tile") else "xla"
+            return mp_einsum_runtime(
+                eq, a, b, rt_mode, rounding=policy.rounding, impl=impl,
+                device=a.device,
+            )
+        return mp_einsum(
+            eq, a, b, mode, rounding=policy.rounding, impl=policy.impl,
             device=a.device,
         )
-    return mp_einsum(
-        eq, a, b, mode, rounding=policy.rounding, impl=policy.impl,
-        device=a.device,
-    )
 
 
 def plinear(x: Tensor, p: Params, op: str, policy: PrecisionPolicy) -> Tensor:

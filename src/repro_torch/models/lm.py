@@ -57,6 +57,7 @@ from repro_torch.models.layers import (
     swiglu_apply,
     swiglu_init,
 )
+from repro_torch.obs.device import device_span
 
 Tensor = torch.Tensor
 
@@ -179,39 +180,50 @@ def _gather_rows(w: DTensor, tokens: Tensor) -> DTensor:
 def _block_apply(p: Params, x: Tensor, cfg: ArchConfig, kind: str, *, positions=None,
                  cache=None, enc_out: Tensor | None = None, write_pools: bool = True):
     """One block of ``kind``.  Returns (x, new_cache, aux): ``aux`` is a MoE
-    block's load-balance loss, None for the other kinds."""
+    block's load-balance loss, None for the other kinds.  Its parts are
+    device spans (repro_torch.obs.device): ``attention`` (norm through the
+    residual, cache write included), ``ffn`` (norm through the MLP or MoE
+    residual) and ``mixer`` (the recurrent blocks)."""
     x = _constrain_act(x, cfg)
     if kind in ("dense", "moe", "enc", "dec", "attn_local"):
-        h, new_cache = attention_apply(
-            p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
-            positions=positions, cache=cache,
-            window=cfg.local_window if kind == "attn_local" else 0,
-            causal=kind != "enc", write_pools=write_pools,
-        )
-        x = x + h
-        if kind == "dec":
-            h, _ = attention_apply(p["cross"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
-                                   kv_override=(enc_out, enc_out))
+        with device_span("attention"):
+            h, new_cache = attention_apply(
+                p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
+                positions=positions, cache=cache,
+                window=cfg.local_window if kind == "attn_local" else 0,
+                causal=kind != "enc", write_pools=write_pools,
+            )
             x = x + h
-        xi = rms_norm(x, p["norm2"], cfg.norm_eps)
-        aux = None
-        if kind == "moe":
-            h, aux = moe_lib.moe_apply(p["moe"], xi, cfg)
-        elif kind in ("enc", "dec"):
-            h = gelu_mlp_apply(p["mlp"], xi, cfg.policy)
-        else:
-            h = swiglu_apply(p["mlp"], xi, cfg.policy)
-        return x + h, new_cache, aux
+            if kind == "dec":
+                h, _ = attention_apply(p["cross"], rms_norm(x, p["norm3"], cfg.norm_eps), cfg,
+                                       kv_override=(enc_out, enc_out))
+                x = x + h
+        with device_span("ffn"):
+            xi = rms_norm(x, p["norm2"], cfg.norm_eps)
+            aux = None
+            if kind == "moe":
+                h, aux = moe_lib.moe_apply(p["moe"], xi, cfg)
+            elif kind in ("enc", "dec"):
+                h = gelu_mlp_apply(p["mlp"], xi, cfg.policy)
+            else:
+                h = swiglu_apply(p["mlp"], xi, cfg.policy)
+            x = x + h
+        return x, new_cache, aux
     if kind == "ssm":
-        h, new_state = ssm_lib.mamba2_apply(
-            p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
-        return x + h, new_state, None
+        with device_span("mixer"):
+            h, new_state = ssm_lib.mamba2_apply(
+                p["ssm"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
+            x = x + h
+        return x, new_state, None
     if kind == "rec":
-        h, new_state = griffin_lib.rglru_block_apply(
-            p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
-        x = x + h
-        h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
-        return x + h, new_state, None
+        with device_span("mixer"):
+            h, new_state = griffin_lib.rglru_block_apply(
+                p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, state=cache)
+            x = x + h
+        with device_span("ffn"):
+            h = swiglu_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.policy)
+            x = x + h
+        return x, new_state, None
     raise ValueError(kind)
 
 
@@ -315,16 +327,18 @@ class LanguageModel:
 
     def _embed(self, params: Params, tokens: Tensor) -> Tensor:
         w = params["embed"]["w"]
-        x = _gather_rows(w, tokens) if isinstance(w, DTensor) else w[tokens.long()]
-        return _constrain_act(x.to(torch.float32), self.cfg)
+        with device_span("embed"):
+            x = _gather_rows(w, tokens) if isinstance(w, DTensor) else w[tokens.long()]
+            return _constrain_act(x.to(torch.float32), self.cfg)
 
     def _logits(self, params: Params, x: Tensor) -> Tensor:
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
-        else:
-            logits = pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
+        with device_span("head"):
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            if cfg.tie_embeddings:
+                logits = pein("bsd,vd->bsv", x, params["embed"]["w"], "logits", cfg.policy)
+            else:
+                logits = pein("bsd,dv->bsv", x, params["unembed"]["w"], "logits", cfg.policy)
         if cfg.attn_shard == "sequence":
             return constrain(logits, BATCH_AXES, "model", None)
         return constrain(logits, BATCH_AXES, None, "model")

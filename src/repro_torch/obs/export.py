@@ -3,11 +3,13 @@
 The Chrome document uses only self-balancing phases — ``"X"`` (complete
 spans with explicit ``dur``), ``"i"`` (instants), ``"C"`` (counters) and
 ``"M"`` (metadata) — so a truncated ring can never produce unbalanced
-begin/end pairs.  Layout: pid 1 is the engine (dispatch spans and decision
-instants on tid 0), pid 2 holds one thread per request (tid = rid) whose
+begin/end pairs.  Layout: pid 1 is the engine (its host spans — every event
+with a ``dur_ms``, nested step > prefill / decode_step > their parts, each
+with the device time of its blocks in its args — and decision instants on
+tid 0), pid 2 holds one thread per request (tid = rid) whose
 spans are the request lifecycle reconstructed from submit/admit/preempt/
-resume/done events.  Timestamps are microseconds relative to the first
-event.
+resume/done events.  Timestamps are microseconds relative to the
+earliest event or span start.
 
 ``validate_chrome`` is the schema + well-formedness gate CI runs on
 exported traces; ``span_violations`` checks the *semantic* lifecycle
@@ -40,7 +42,10 @@ _INSTANT_KINDS = {
     "spec_round": "t",
 }
 
-#: engine events with a ``dur_ms`` payload rendered as complete spans
+#: engine events rendered as complete spans even without a ``dur_ms``
+#: payload (length 0); every event that carries ``dur_ms`` is one too — the
+#: host spans of ``Tracer.span`` (with their own start ``t0``) and the
+#: speculative round
 _SPAN_KINDS = ("decode_step", "prefill")
 
 
@@ -67,19 +72,25 @@ def to_chrome(events: list[Event], counters: dict | None = None,
     if not events:
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
-    t0 = min(e.ts for e in events)
+    t0 = min([e.ts for e in events]
+             + [e.data["t0"] for e in events if e.data and "t0" in e.data])
 
     def us(ts: float) -> float:
         return (ts - t0) * 1e6
 
     # -- engine track: dispatch spans, instants, counters --------------------
     for e in events:
-        if e.kind in _SPAN_KINDS:
-            dur_us = float((e.data or {}).get("dur_ms", 0.0)) * 1e3
+        data = e.data or {}
+        if e.kind in _SPAN_KINDS or data.get("dur_ms") is not None:
+            if "t0" in data:  # a span that knows its start
+                start = us(data["t0"])
+                dur_us = us(e.ts) - start
+            else:
+                dur_us = float(data.get("dur_ms") or 0.0) * 1e3
+                start = max(0.0, us(e.ts) - dur_us)
             out.append({
                 "ph": "X", "pid": 1, "tid": 0, "name": e.kind, "cat": "engine",
-                "ts": max(0.0, us(e.ts) - dur_us), "dur": dur_us,
-                "args": _args(e)})
+                "ts": start, "dur": dur_us, "args": _args(e)})
             if e.kind == "decode_step" and "n_active" in (e.data or {}):
                 out.append({
                     "ph": "C", "pid": 1, "tid": 0, "name": "active_slots",

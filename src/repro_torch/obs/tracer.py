@@ -3,8 +3,9 @@
 One :class:`Tracer` per engine records typed :class:`Event` records into a
 bounded ring buffer (``collections.deque(maxlen=capacity)``) on a monotonic
 clock, plus a flat counter/gauge registry.  Everything is host-side Python:
-no event ever becomes a device value, so a traced engine launches *exactly*
-what an untraced one does (identical tokens with tracing on vs off).
+no event ever becomes a device value, so a traced engine launches the
+kernels an untraced one does (identical tokens with tracing on vs off),
+plus the timing events of its device spans (repro_torch.obs.device).
 
 When tracing is off the engine holds :data:`NULL_TRACER`, whose hooks are
 no-ops and whose ``enabled`` flag lets hot paths skip even the argument
@@ -18,6 +19,12 @@ Event taxonomy (DESIGN.md section Observability):
               harness (consumer mode);
   engine      decode_step, spec_round, prefill, recompile — per-dispatch
               wall time and token accounting (repro_torch.obs.profile);
+  spans       step, schedule, prefill.*, pages, decode.*, adapt,
+              page_tick, capture — host sub-spans of every engine step
+              (``Tracer.span``), each one event at its end with its start,
+              its length and its parent span; ``prefill`` and
+              ``decode_step`` are spans too, and carry the device time of
+              the step's blocks (repro_torch.obs.device);
   decisions   adapt_decision, mode_switch, draft_shift, tier_tick,
               preempt_plan, admit_defer, admit_refuse, page_evict, cow_fork,
               prefix_share — every reconfiguration with its *cause*.
@@ -30,6 +37,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+from repro_torch.obs.device import NULL_SPAN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +93,9 @@ class Tracer:
         #: ``step()`` so emit sites need not thread the clock through
         self.step = 0
         self.emitted = 0
+        #: ids of the spans open now, innermost last (``span``)
+        self._open: list[int] = []
+        self._spans = 0
 
     @property
     def dropped(self) -> int:
@@ -94,6 +109,17 @@ class Tracer:
         self.events.append(Event(
             ts=self.clock(), step=self.step if step is None else int(step),
             kind=kind, rid=rid, slot=slot, cause=cause, data=data or None))
+
+    def span(self, kind: str, *, rid: int | None = None,
+             slot: int | None = None, cause: str | None = None,
+             **data) -> "Span":
+        """A host span: ``with tracer.span("prefill", rid=...) as sp:``.
+        One ``kind`` event at its end (``ts``) whose data carry ``dur_ms``,
+        the start ``t0`` on the same clock, the span's id ``span`` and the
+        enclosing span's id ``parent`` (None at the top).  While
+        ``torch.profiler`` records, the span is also a ``record_function``
+        range of the same name."""
+        return Span(self, kind, rid, slot, cause, data)
 
     def inc(self, name: str, value: float = 1.0) -> None:
         self.counters[name] = self.counters.get(name, 0.0) + value
@@ -142,6 +168,45 @@ class Tracer:
                 f"capacity {self.config.capacity}) | {body or '-'}")
 
 
+class Span:
+    """One host span of a :class:`Tracer` (``Tracer.span``).  ``data`` is
+    the event's payload: entries added before the span ends, or after it
+    (a device read that has to wait for the span's own sync), land in its
+    event; ``event`` is that event once the span has ended."""
+
+    __slots__ = ("tracer", "kind", "rid", "slot", "cause", "data", "event", "_range")
+
+    def __init__(self, tracer: Tracer, kind: str, rid, slot, cause, data: dict):
+        self.tracer, self.kind, self.data = tracer, kind, data
+        self.rid, self.slot, self.cause = rid, slot, cause
+        self.event: Event | None = None
+        self._range = None
+
+    def __enter__(self) -> "Span":
+        tr = self.tracer
+        tr._spans += 1
+        self.data["span"] = tr._spans
+        self.data["parent"] = tr._open[-1] if tr._open else None
+        tr._open.append(tr._spans)
+        if _profiler_enabled():
+            self._range = record_function(self.kind)
+            self._range.__enter__()
+        self.data["t0"] = tr.clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        tr = self.tracer
+        ts = tr.clock()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        tr._open.pop()
+        self.data["dur_ms"] = (ts - self.data["t0"]) * 1e3
+        self.event = Event(ts=ts, step=tr.step, kind=self.kind, rid=self.rid,
+                           slot=self.slot, cause=self.cause, data=self.data)
+        tr.emitted += 1
+        tr.events.append(self.event)
+
+
 class NullTracer:
     """The tracing-off sentinel: every hook is a no-op and ``enabled`` is
     False, so guarded emit sites cost one attribute read.  Exporters refuse
@@ -157,6 +222,9 @@ class NullTracer:
 
     def emit(self, kind: str, **kw) -> None:
         pass
+
+    def span(self, kind: str, **kw):
+        return NULL_SPAN
 
     def inc(self, name: str, value: float = 1.0) -> None:
         pass

@@ -68,7 +68,21 @@ own slots.
 With ``trace=`` the engine records typed events (repro_torch.obs) and a
 ``PhaseProfiler`` times prefill, decode and speculative rounds and
 watches the capture and build counts for recompiles.  Every emit site is
-host code between replays, never inside a captured body.
+host code between replays, never inside a captured body.  Each step is a
+tree of host spans (``Tracer.span``):
+
+    step > schedule, prefill (> prefill.forward, prefill.scatter,
+           prefill.sample), pages, decode.inputs, decode_step or spec_round
+           (> decode.replay (> capture), decode.sync), decode.emit, adapt,
+           page_tick
+
+and the device time of the model's blocks (repro_torch.obs.device) goes
+onto the ``prefill`` and ``decode_step`` / ``spec_round`` events: the
+compiled steps are captured inside a recording, so their graphs hold timing
+events at every block boundary, and each eager prefill runs inside one.
+Those times are read after the step's own sync, in ``decode.emit`` (for the
+prefill, once its span has closed).  Tracing off, no recording is opened
+and the graphs hold no event node.
 """
 from __future__ import annotations
 
@@ -79,6 +93,7 @@ import torch
 
 from repro_torch.models.lm import LanguageModel, copy_state_, map_state
 from repro_torch.obs import NULL_TRACER, PhaseProfiler, TraceConfig, Tracer
+from repro_torch.obs.device import NULL_SPAN, Recording, device_span
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.paged import batch_leaves, make_layout, restore_pools, save_pools
@@ -381,7 +396,7 @@ class ServeEngine:
         # time, outputs read before the next replay)
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
         self._step_graph = self._round_graph = self._probe_graph = None
-        common = dict(snapshot=self._snapshot, pool=pool)
+        common = dict(snapshot=self._snapshot, pool=pool, tracer=self.tracer)
         if self.spec is not None:
             self._draft_modes = self._spec_table.device_view(dev)
             self._verify_modes = (self._spec_table.device_view(dev)
@@ -397,7 +412,8 @@ class ServeEngine:
                 self._plain_step_body, dev, name="masked_step", **common)
         if self.slo is not None:
             self._probe_modes = self._site_table.device_view(dev)
-            self._probe_graph = CompiledStep(self._probe_body, dev, name="probe", pool=pool)
+            self._probe_graph = CompiledStep(self._probe_body, dev, name="probe", pool=pool,
+                                             tracer=self.tracer)
 
     def close(self) -> None:
         """Drop the compiled steps' graphs and their memory pool now.  (A
@@ -452,8 +468,15 @@ class ServeEngine:
         and empty slots are inert, so a freed slot can be re-filled at any
         step without touching the others."""
         logits, new_state = self.model_decode.decode_step(params, tokens, state)
-        merged = self._merge(new_state, state, active)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), merged
+        return self._sample_and_merge(logits, new_state, state, active)
+
+    def _sample_and_merge(self, logits, new_state, state, active):
+        """The masked step's tail: each row's greedy token (device span
+        ``sample``) and the per-row select of the new state (``state``)."""
+        with device_span("state"):
+            merged = self._merge(new_state, state, active)
+        with device_span("sample"):
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), merged
 
     def _masked_step_modal(self, params, tokens, state, active, modes):
         """The masked step with the mode table bound: ``modes`` is a dict of
@@ -465,22 +488,23 @@ class ServeEngine:
         with bind_modes(modes):
             logits, new_state = self.model_decode.decode_step(
                 params, tokens, state)
-        merged = self._merge(new_state, state, active)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), merged
+        return self._sample_and_merge(logits, new_state, state, active)
 
     # -- the compiled steps' bodies: static inputs in, static state written --
 
     def _plain_step_body(self):
         next_tok, merged = self._masked_step(
             self.params, self._tokens, self.state, self._active_dev)
-        copy_state_(self.state, merged)
+        with device_span("state"):
+            copy_state_(self.state, merged)
         return next_tok
 
     def _modal_step_body(self):
         next_tok, merged = self._masked_step_modal(
             self.params, self._tokens, self.state, self._active_dev,
             self._step_modes.scalars)
-        copy_state_(self.state, merged)
+        with device_span("state"):
+            copy_state_(self.state, merged)
         return next_tok
 
     def _probe_body(self):
@@ -499,7 +523,8 @@ class ServeEngine:
             self.params, self._tokens, self.state, self._active_dev,
             self._draft_modes.scalars,
             {} if self._verify_modes is None else self._verify_modes.scalars)
-        copy_state_(self.state, new_state)
+        with device_span("state"):
+            copy_state_(self.state, new_state)
         # (k, B) drafts, (k+1, B) verify tokens, (B,) acceptance: one read
         return torch.cat([drafts, greedy, n_acc[None]])
 
@@ -535,33 +560,40 @@ class ServeEngine:
         token, the request just continues), then run one masked batched
         decode step for every active slot.  Returns this step's
         (rid, token) events in emission order."""
+        with self.tracer.span("step"):
+            return self._step()
+
+    def _step(self) -> list[tuple[int, int]]:
         events: list[tuple[int, int]] = []
-        self.scheduler.tick()
-        self.tracer.step = self.scheduler.clock
-        for victim in self.scheduler.plan_preemptions():
-            self._park_slot(victim, cause="priority")
-        self.layout.begin_admission()
-        for slot, ticket in self.scheduler.admit(can_admit=self._can_admit):
+        tr = self.tracer
+        with tr.span("schedule"):
+            self.scheduler.tick()
+            tr.step = self.scheduler.clock
+            for victim in self.scheduler.plan_preemptions():
+                self._park_slot(victim, cause="priority")
+            self.layout.begin_admission()
+            admitted = self.scheduler.admit(can_admit=self._can_admit)
+        for slot, ticket in admitted:
             if slot < 0:
                 # zero-budget admission (nothing fits the cache): the
                 # scheduler completed it without a slot
                 self.metrics.on_done(ticket.rid, step=self.scheduler.clock)
-                if self.tracer.enabled:
-                    self.tracer.emit("done", rid=ticket.rid, slot=-1,
-                                     cause="zero_budget")
+                if tr.enabled:
+                    tr.emit("done", rid=ticket.rid, slot=-1, cause="zero_budget")
                 continue
             if ticket.tokens:
                 self._resume_slot(slot, ticket)
                 continue
-            if self.tracer.enabled:
-                self.tracer.emit("admit", rid=ticket.rid, slot=slot,
-                                 tenant=ticket.tenant, rclass=ticket.rclass)
+            if tr.enabled:
+                tr.emit("admit", rid=ticket.rid, slot=slot,
+                        tenant=ticket.tenant, rclass=ticket.rclass)
             first = self._prefill_slot(slot, ticket)
             self.metrics.on_first_token(ticket.rid)
             events.append((ticket.rid, first))
             self._emit(ticket, slot, first)
         if self._active.any():
-            self._prepare_pages()
+            with tr.span("pages"):
+                self._prepare_pages()
         if self._active.any():
             if self.spec is not None:
                 events.extend(self._spec_step())
@@ -570,10 +602,11 @@ class ServeEngine:
             if (self.slo is not None
                     and self.metrics.decode_steps % self.adapt_every == 0
                     and self._active.any()):
-                if self._per_tenant_adapt:
-                    self._adapt_tick_tenants()
-                else:
-                    self._adapt_tick()
+                with tr.span("adapt"):
+                    if self._per_tenant_adapt:
+                        self._adapt_tick_tenants()
+                    else:
+                        self._adapt_tick()
             self._page_tick()
         return events
 
@@ -619,6 +652,10 @@ class ServeEngine:
         stats = self.layout.page_stats()
         if stats is None:
             return
+        with self.tracer.span("page_tick"):
+            self._page_tick_stats(stats)
+
+    def _page_tick_stats(self, stats) -> None:
         self.metrics.on_page_stats(stats)
         tp = self.config.cache.tier_policy
         if tp is None or self.metrics.decode_steps % tp.every != 0:
@@ -721,36 +758,60 @@ class ServeEngine:
         """One masked batched decode step (the non-speculative path): one
         replay of the plain or the modal compiled step."""
         events: list[tuple[int, int]] = []
-        self._device_inputs()
-        tenant_active = self._tenant_active()
-        t0 = time.perf_counter()
-        if self.slo is not None:
-            if self._per_tenant_adapt:
-                scalars, label = self._bound_scalars(tenant_active)
-            else:
-                scalars, label = self.mode_table.scalars(), self.mode_table.label()
-            self._step_modes.write(scalars)  # skipped when nothing changed
-        else:
-            label = self._static_decode_label
-        produced = self._step_graph().cpu().numpy()  # syncs the step
-        self._last_step_ms = (time.perf_counter() - t0) * 1e3
+        tr = self.tracer
+        with tr.span("decode.inputs"):
+            self._device_inputs()
+            tenant_active = self._tenant_active()
         n_active = int(self._active.sum())
-        self.metrics.on_decode_step(
-            n_active, mode=label, tenant_active=tenant_active)
-        if self.tracer.enabled:
-            self.tracer.emit("decode_step", dur_ms=self._last_step_ms,
-                             n_active=n_active, mode=label)
-            self.tracer.set_gauge("active_slots", n_active)
-            self.profiler.record("decode", self._last_step_ms / 1e3,
-                                 tokens=n_active)
-            self.profiler.observe_cache("decode_step", self._step_graph.captures)
-        for slot in np.nonzero(self._active)[0]:
-            ticket = self.scheduler.by_slot[int(slot)]
-            tok = int(produced[slot])
-            self._row_len[slot] += 1  # this step appended one KV entry
-            events.append((ticket.rid, tok))
-            self._emit(ticket, int(slot), tok)
+        t0 = time.perf_counter()
+        with tr.span("decode_step", n_active=n_active) as sp:
+            if self.slo is not None:
+                if self._per_tenant_adapt:
+                    scalars, label = self._bound_scalars(tenant_active)
+                else:
+                    scalars, label = self.mode_table.scalars(), self.mode_table.label()
+                self._step_modes.write(scalars)  # skipped when nothing changed
+            else:
+                label = self._static_decode_label
+            with tr.span("decode.replay"):
+                out = self._step_graph()
+            with tr.span("decode.sync"):
+                produced = out.cpu().numpy()  # syncs the step
+            self._last_step_ms = (time.perf_counter() - t0) * 1e3
+        with tr.span("decode.emit"):
+            self.metrics.on_decode_step(
+                n_active, mode=label, tenant_active=tenant_active)
+            if tr.enabled:
+                sp.data["mode"] = label
+                self._read_device(sp, self._step_graph)
+                tr.set_gauge("active_slots", n_active)
+                self.profiler.record("decode", self._last_step_ms / 1e3,
+                                     tokens=n_active)
+                self.profiler.observe_cache("decode_step", self._step_graph.captures)
+            for slot in np.nonzero(self._active)[0]:
+                ticket = self.scheduler.by_slot[int(slot)]
+                tok = int(produced[slot])
+                self._row_len[slot] += 1  # this step appended one KV entry
+                events.append((ticket.rid, tok))
+                self._emit(ticket, int(slot), tok)
         return events
+
+    def _read_device(self, sp, graph) -> None:
+        """The device time of the step ``graph`` ran (its sync done) onto
+        the step's span ``sp``: ``device_ms`` (the whole replay), and
+        ``sites_ms`` / ``sites_n`` per device span; and the counters."""
+        device_ms, sites_ms, sites_n = graph.read()
+        sp.data.update(device_ms=device_ms, sites_ms=sites_ms, sites_n=sites_n)
+        self._count_device(sp.kind, sites_ms, device_ms)
+
+    def _count_device(self, kind: str, sites_ms: dict[str, float],
+                      device_ms: float | None = None) -> None:
+        """Counters ``device_ms/<kind>`` (the whole step) and
+        ``device_ms/<kind>/<span path>``."""
+        if device_ms is not None:
+            self.tracer.inc(f"device_ms/{kind}", device_ms)
+        for path, ms in sites_ms.items():
+            self.tracer.inc(f"device_ms/{kind}/{path}", ms)
 
     def _spec_step(self) -> list[tuple[int, int]]:
         """One speculative round: draft k cheap tokens per slot, verify all
@@ -758,54 +819,63 @@ class ServeEngine:
         accepted prefix plus the correction token (clamped to its remaining
         decode budget); the round rolls the state back on the device."""
         events: list[tuple[int, int]] = []
-        active_np = self._active.copy()
-        self._device_inputs()
+        tr = self.tracer
+        with tr.span("decode.inputs"):
+            active_np = self._active.copy()
+            self._device_inputs()
         k = self.spec.k
         t0 = time.perf_counter()
-        self._draft_modes.write(self._spec_table.scalars_shifted(-self.draft_shift))
-        if self._verify_modes is not None:
-            self._verify_modes.write(self._spec_table.scalars())
-        host = self._round_graph().cpu().numpy()  # the round's one sync
-        drafts, greedy, n_acc = host[:k], host[k:2 * k + 1], host[2 * k + 1]
-        self._last_step_ms = (time.perf_counter() - t0) * 1e3
-        n_active = int(active_np.sum())
-        self.metrics.on_decode_step(
-            n_active,
-            mode=(self.mode_table.label() if self.mode_table is not None
-                  else self._static_decode_label),
-            tenant_active=self._tenant_active(),
-        )
-        accepted = agreed = emitted = 0
-        for slot in np.nonzero(active_np)[0]:
-            ticket = self.scheduler.by_slot[int(slot)]
-            j = int(n_acc[slot])
-            # the rolled-back cache holds the accepted prefix + correction
-            # (budget clamping truncates *emission*, not the cache)
-            self._row_len[slot] += j + 1
-            # two accounts: metrics credit only drafts that were *emitted*
-            # (a budget-truncated tail did no useful work), while the
-            # controller sees raw draft/verify *agreement* — truncation says
-            # nothing about draft quality and must not read as rejection
-            agreed += j
-            accepted += min(j, ticket.remaining)
-            burst = [int(drafts[i, slot]) for i in range(j)]
-            burst.append(int(greedy[j, slot]))  # correction / bonus token
-            for tok in burst[:ticket.remaining]:
-                events.append((ticket.rid, tok))
-                self._emit(ticket, int(slot), tok)
-                emitted += 1
-        self._last_step_tokens = emitted / n_active if n_active else 1.0
-        self.metrics.on_spec_round(
-            n_active, drafted=k * n_active, accepted=accepted, emitted=emitted)
-        if self.tracer.enabled:
-            from repro_torch.spec.rollout import trace_round
+        with tr.span("spec_round") as sp:
+            self._draft_modes.write(self._spec_table.scalars_shifted(-self.draft_shift))
+            if self._verify_modes is not None:
+                self._verify_modes.write(self._spec_table.scalars())
+            with tr.span("decode.replay"):
+                out = self._round_graph()
+            with tr.span("decode.sync"):
+                host = out.cpu().numpy()  # the round's one sync
+            drafts, greedy, n_acc = host[:k], host[k:2 * k + 1], host[2 * k + 1]
+            self._last_step_ms = (time.perf_counter() - t0) * 1e3
+        with tr.span("decode.emit"):
+            n_active = int(active_np.sum())
+            self.metrics.on_decode_step(
+                n_active,
+                mode=(self.mode_table.label() if self.mode_table is not None
+                      else self._static_decode_label),
+                tenant_active=self._tenant_active(),
+            )
+            accepted = agreed = emitted = 0
+            for slot in np.nonzero(active_np)[0]:
+                ticket = self.scheduler.by_slot[int(slot)]
+                j = int(n_acc[slot])
+                # the rolled-back cache holds the accepted prefix + correction
+                # (budget clamping truncates *emission*, not the cache)
+                self._row_len[slot] += j + 1
+                # two accounts: metrics credit only drafts that were *emitted*
+                # (a budget-truncated tail did no useful work), while the
+                # controller sees raw draft/verify *agreement* — truncation
+                # says nothing about draft quality and must not read as
+                # rejection
+                agreed += j
+                accepted += min(j, ticket.remaining)
+                burst = [int(drafts[i, slot]) for i in range(j)]
+                burst.append(int(greedy[j, slot]))  # correction / bonus token
+                for tok in burst[:ticket.remaining]:
+                    events.append((ticket.rid, tok))
+                    self._emit(ticket, int(slot), tok)
+                    emitted += 1
+            self._last_step_tokens = emitted / n_active if n_active else 1.0
+            self.metrics.on_spec_round(
+                n_active, drafted=k * n_active, accepted=accepted, emitted=emitted)
+            if tr.enabled:
+                from repro_torch.spec.rollout import trace_round
 
-            trace_round(self.tracer, k=k, n_active=n_active, agreed=agreed,
-                        emitted=emitted, dur_ms=self._last_step_ms)
-            self.tracer.set_gauge("active_slots", n_active)
-            self.profiler.record("spec", self._last_step_ms / 1e3,
-                                 tokens=emitted)
-            self.profiler.observe_cache("spec_round", self._round_graph.captures)
+                trace_round(tr, sp, k=k, n_active=n_active, agreed=agreed,
+                            emitted=emitted)
+                self._read_device(sp, self._round_graph)
+                tr.set_gauge("active_slots", n_active)
+                self.profiler.record("spec", self._last_step_ms / 1e3,
+                                     tokens=emitted)
+                self.profiler.observe_cache("spec_round", self._round_graph.captures)
         self._spec_window[0] += k * n_active
         self._spec_window[1] += agreed
         if (self._accept_ctrl is not None
@@ -932,21 +1002,32 @@ class ServeEngine:
     # -- internals -----------------------------------------------------------
 
     def _prefill_slot(self, slot: int, ticket: Ticket) -> int:
-        t0 = time.perf_counter()
-        prompt = torch.as_tensor(np.asarray(ticket.prompt, np.int64)[None, :],
-                                 device=self.device)
-        logits, solo = self.model_prefill.decode_step(
-            self.params, prompt, self._solo0)
-        self._set_state(self.layout.scatter_row(
-            self.state, solo, slot, prompt=ticket.prompt))
-        self._row_len[slot] = len(ticket.prompt)
-        first = int(torch.argmax(logits[0, -1]))  # syncs the prefill
-        if self.tracer.enabled:
-            dur_s = time.perf_counter() - t0
-            self.tracer.emit("prefill", rid=ticket.rid, slot=slot,
-                             dur_ms=dur_s * 1e3,
-                             prompt_len=len(ticket.prompt))
-            self.profiler.record("prefill", dur_s,
+        """One solo prefill: the prompt's forward, its row scattered into
+        ``slot``, the first token.  Traced, it runs inside a recording of
+        its device spans (the model's blocks, ``scatter``, ``sample``),
+        read once its span has closed."""
+        tr = self.tracer
+        with tr.span("prefill", rid=ticket.rid, slot=slot,
+                     prompt_len=len(ticket.prompt)) as sp:
+            with Recording(self.device) if tr.enabled else NULL_SPAN as rec:
+                with tr.span("prefill.forward"):
+                    prompt = torch.as_tensor(
+                        np.asarray(ticket.prompt, np.int64)[None, :], device=self.device)
+                    logits, solo = self.model_prefill.decode_step(
+                        self.params, prompt, self._solo0)
+                with tr.span("prefill.scatter"), device_span("scatter"):
+                    self._set_state(self.layout.scatter_row(
+                        self.state, solo, slot, prompt=ticket.prompt))
+                self._row_len[slot] = len(ticket.prompt)
+                with tr.span("prefill.sample"):
+                    with device_span("sample"):
+                        first = torch.argmax(logits[0, -1])
+                    first = int(first)  # syncs the prefill
+        if tr.enabled:
+            sites_ms, sites_n = rec.read()
+            sp.data.update(sites_ms=sites_ms, sites_n=sites_n)
+            self._count_device("prefill", sites_ms)
+            self.profiler.record("prefill", sp.data["dur_ms"] / 1e3,
                                  tokens=len(ticket.prompt))
             self.profiler.observe_cache("prefill", self.kernel_build_count)
         return first

@@ -23,6 +23,14 @@ tensor from host data.
   ``jax.disable_jit``), the same function runs eagerly on the same
   buffers.
 
+With its ``tracer`` on, a step times its blocks on the device
+(repro_torch.obs.device): the capture runs inside a ``Recording``, so the
+graph holds a pair of timing-event nodes at every device span and each
+replay records them again, and two plain events around ``replay()`` time
+the whole replay; eagerly, each call records afresh.  :meth:`CompiledStep.read` gives both after the caller's sync.
+With the tracer off the graph holds no event node.  Each capture is a
+``capture`` span on the tracer.
+
 ``kernels.build.LAUNCHES`` (and ``BODY_LAUNCHES``) are counted by the
 kernels' Python wrappers, which a replay does not run: the launches a
 capture recorded are added per replay instead, so launch counts stay true
@@ -49,6 +57,8 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.obs import NULL_TRACER
+from repro_torch.obs.device import NULL_SPAN, Recording
 
 #: depth of open ``eager()`` contexts (the engine steps from one thread)
 _EAGER = [0]
@@ -94,16 +104,24 @@ class CompiledStep:
     with it before the capture.  ``pool``: the memory pool to capture into
     (shared by the steps of one engine), or None for a pool of its own.
     Both callables are held weakly when they are bound methods.
+    ``tracer``: where each capture is a ``capture`` span; while it is on,
+    the step times its device spans and the whole call (:meth:`read`).
     """
 
     def __init__(self, fn: Callable[[], object], device, *, name: str,
                  snapshot: Callable[[], Callable[[], None]] | None = None,
-                 pool=None):
+                 pool=None, tracer=NULL_TRACER):
         self.fn = _weakly(fn)
         self.device = torch.device(device)
         self.name = name
         self.snapshot = _weakly(snapshot)
         self.pool = pool
+        self.tracer = tracer
+        #: the device spans of the last call: the capture's (replayed), or
+        #: the last eager call's; and the stamps around that whole call
+        self.recording: Recording | None = None
+        self._graph_recording: Recording | None = None
+        self._whole = None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
         #: kernel launches one replay makes, recorded at capture, by kernel
@@ -117,10 +135,23 @@ class CompiledStep:
 
     def __call__(self):
         if self.device.type != "cuda" or _EAGER[0]:
-            return self.fn()
+            if not self.tracer.enabled:
+                return self.fn()
+            rec = self.recording = Recording(self.device)
+            start = rec.stamp()
+            with rec:
+                out = self.fn()
+            self._whole = (start, rec.stamp())
+            return out
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        if self.tracer.enabled:
+            rec = self.recording = self._graph_recording
+            start = rec.stamp()
+            self.graph.replay()
+            self._whole = (start, rec.stamp())
+        else:
+            self.graph.replay()
         for counts, recorded in ((build.LAUNCHES, self.launches),
                                  (build.BODY_LAUNCHES, self.body_launches)):
             for name, n in recorded.items():
@@ -128,7 +159,19 @@ class CompiledStep:
         self.replays += 1
         return self.outputs
 
+    def read(self) -> tuple[float, dict[str, float], dict[str, int]]:
+        """After the last call's sync: its device ms, and each device span's
+        ms and count (``Recording.read``).  Only with the tracer on."""
+        rec = self.recording
+        return (rec.elapsed_ms(*self._whole),) + rec.read()
+
     def _capture(self) -> None:
+        with self.tracer.span("capture", name=self.name) as sp:
+            self._capture_graph()
+        if self.tracer.enabled:
+            sp.data["capture_s"] = self.capture_s
+
+    def _capture_graph(self) -> None:
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         restore = self.snapshot() if self.snapshot is not None else None
@@ -145,8 +188,11 @@ class CompiledStep:
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         before, before_body = build.launch_counts(), build.body_launch_counts()
-        with torch.cuda.graph(graph, pool=self.pool):
+        rec = Recording(self.device) if self.tracer.enabled else NULL_SPAN
+        with torch.cuda.graph(graph, pool=self.pool), rec:
             outputs = self.fn()
+        if self.tracer.enabled:
+            self._graph_recording = rec
         after, after_body = build.launch_counts(), build.body_launch_counts()
         # a capture enqueues nothing: what the wrappers counted meanwhile is
         # what each replay will launch
@@ -165,3 +211,4 @@ class CompiledStep:
         self.graph = None
         self.outputs = None
         self.pool = None
+        self.recording = self._graph_recording = None

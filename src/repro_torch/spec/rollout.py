@@ -246,9 +246,11 @@ def build_spec_round(model, axes: DecodeState, k: int, modal_verify: bool):
 REJECT_STORM_RATE = 0.25
 
 
-def trace_round(tracer, *, k: int, n_active: int, agreed: int, emitted: int,
-                dur_ms: float | None = None) -> None:
-    """Emit one speculative round's trace record (repro_torch.obs).
+def trace_round(tracer, span, *, k: int, n_active: int, agreed: int,
+                emitted: int) -> None:
+    """Complete one speculative round's trace record (repro_torch.obs): the
+    round's ``spec_round`` span (``Tracer.span``, already ended, so its
+    event carries the round's ``dur_ms``) gets the round's counts.
 
     ``agreed`` is raw draft/verify agreement (what the acceptance controller
     sees), ``emitted`` the tokens that actually left the engine after budget
@@ -259,12 +261,10 @@ def trace_round(tracer, *, k: int, n_active: int, agreed: int, emitted: int,
         return
     drafted = k * n_active
     rate = agreed / drafted if drafted else None
-    tracer.emit(
-        "spec_round",
-        cause=("reject_storm" if rate is not None and rate < REJECT_STORM_RATE
-               else None),
-        dur_ms=dur_ms, n_active=n_active, drafted=drafted, agreed=agreed,
-        emitted=emitted, accept_rate=rate)
+    if rate is not None and rate < REJECT_STORM_RATE:
+        span.event.cause = "reject_storm"
+    span.data.update(n_active=n_active, drafted=drafted, agreed=agreed,
+                     emitted=emitted, accept_rate=rate)
     tracer.inc("spec_rounds")
     tracer.inc("spec_drafted", drafted)
     tracer.inc("spec_agreed", agreed)

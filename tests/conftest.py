@@ -9,3 +9,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "chip: needs a CUDA device (runs on the card)")

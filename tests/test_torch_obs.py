@@ -440,3 +440,207 @@ class TestEngineTracing:
             assert f"-- {key} --" in block
         e2 = ServeEngine(model, params, config=ServeConfig(batch_slots=1, max_len=16))
         assert set(e2.describe()) == {"plans", "adaptation", "speculation", "tenancy", "cache"}
+
+
+# ---------------------------------------------------------------------------
+# host spans (Tracer.span) and device spans (repro_torch.obs.device)
+# ---------------------------------------------------------------------------
+
+
+class TestHostSpans:
+    def test_span_ids_parents_and_explicit_start(self):
+        ticks = iter(float(i) for i in range(100))
+        tr = Tracer(clock=lambda: next(ticks))
+        tr.step = 4
+        with tr.span("step") as outer:
+            with tr.span("prefill", rid=7, slot=1, prompt_len=3) as inner:
+                pass
+            with tr.span("decode_step", n_active=2):
+                pass
+        outer.data["late"] = True  # a read after the span's end lands in its event
+        ev = {e.kind: e for e in tr.events}
+        assert [e.kind for e in tr.events] == ["prefill", "decode_step", "step"]
+        assert ev["step"].data["parent"] is None
+        assert ev["prefill"].data["parent"] == ev["decode_step"].data["parent"] == \
+            ev["step"].data["span"]
+        assert len({e.data["span"] for e in tr.events}) == 3
+        for e in tr.events:
+            assert e.data["t0"] == e.ts - e.data["dur_ms"] / 1e3 and e.step == 4
+        assert ev["prefill"].rid == 7 and ev["prefill"].slot == 1
+        assert ev["prefill"].data["prompt_len"] == 3 and inner.event is ev["prefill"]
+        assert ev["step"].data["late"] and tr.emitted == 3
+
+    def test_span_opens_a_profiler_range_only_while_recording(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        tr = Tracer()
+        with tr.span("outside"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with tr.span("decode_step"):
+                with tr.span("decode.sync"):
+                    pass
+        names = {e.name for e in prof.events()}
+        assert {"decode_step", "decode.sync"} <= names and "outside" not in names
+
+    def test_null_tracer_span_is_a_shared_no_op(self):
+        a = NULL_TRACER.span("step", rid=1)
+        assert a is NULL_TRACER.span("decode_step")
+        with a as sp:
+            pass
+        assert sp is None
+        assert NULL_TRACER.events == () and NULL_TRACER.emitted == 0
+
+    def test_chrome_renders_spans_from_their_own_start(self):
+        ticks = iter([10.0, 10.5, 11.0, 11.5, 12.0])
+        tr = Tracer(clock=lambda: next(ticks))
+        with tr.span("step"):
+            with tr.span("decode.replay"):
+                pass
+            tr.emit("token", rid=0)
+        doc = tr.chrome()
+        spans = {e["name"]: e for e in doc["traceEvents"] if e["ph"] == "X"}
+        assert spans["step"]["ts"] == 0.0 and spans["step"]["dur"] == pytest.approx(2e6)
+        assert spans["decode.replay"]["ts"] == pytest.approx(0.5e6)
+        assert spans["decode.replay"]["dur"] == pytest.approx(0.5e6)
+        assert validate_chrome(doc) == []
+
+
+@pytest.fixture(scope="module")
+def tiny_moe():
+    _, _, model, params = make_pair("native_f32", arch="phi3.5-moe-42b-a6.6b", n_layers=2)
+    return model, params
+
+
+#: each span's children; every other span is a child of ``step``
+CHILDREN = {"prefill": ("prefill.forward", "prefill.scatter", "prefill.sample"),
+            "decode_step": ("decode.replay", "decode.sync"),
+            "spec_round": ("decode.replay", "decode.sync")}
+TOP = ("schedule", "prefill", "pages", "decode.inputs", "decode_step", "spec_round",
+       "decode.emit", "adapt", "page_tick")
+
+
+def _traced_run(model, params, **over):
+    eng = ServeEngine(model, params, config=ServeConfig(
+        batch_slots=2, max_len=32, trace=TraceConfig(), **over))
+    out = eng.generate_batch(_reqs(model.cfg.vocab, 3, max_new=5))
+    return eng, out
+
+
+class TestEngineSpans:
+    @pytest.mark.parametrize("family", ["dense", "moe"])
+    def test_span_tree_nests_and_exports(self, tiny, tiny_moe, family):
+        model, params = tiny if family == "dense" else tiny_moe
+        eng, _ = _traced_run(model, params)
+        events = list(eng.tracer.events)
+        spans = {e.data["span"]: e for e in events if e.data and "span" in e.data}
+        kinds = {e.kind for e in spans.values()}
+        assert {"step", "schedule", "prefill", "pages", "decode.inputs", "decode_step",
+                "decode.emit"} | set(CHILDREN["prefill"]) | set(CHILDREN["decode_step"]) == kinds
+        for e in spans.values():
+            parent = spans.get(e.data["parent"])
+            if e.kind == "step":
+                assert parent is None
+                continue
+            assert parent is not None, e.kind
+            assert parent.data["t0"] <= e.data["t0"] and e.ts <= parent.ts
+            assert e.kind in CHILDREN.get(parent.kind, TOP), (parent.kind, e.kind)
+        doc = eng.tracer.chrome()
+        assert validate_chrome(doc) == []
+        x = [e for e in doc["traceEvents"] if e["ph"] == "X" and e["pid"] == 1]
+        assert sum(e["name"] == "step" for e in x) == eng.scheduler.clock
+        check_replay(eng)
+
+    def test_adapt_and_page_tick_are_spans_of_the_step(self, tiny):
+        model, params = tiny
+        eng, _ = _traced_run(model, params, adapt=AdaptConfig(slo=SLO(max_err=0.5),
+                                                              adapt_every=2),
+                             cache=CacheConfig(layout="paged", page_size=4))
+        spans = {e.data["span"]: e for e in eng.tracer.events if e.data and "span" in e.data}
+        for kind in ("adapt", "page_tick"):
+            got = [e for e in spans.values() if e.kind == kind]
+            assert got and all(spans[e.data["parent"]].kind == "step" for e in got)
+        assert validate_chrome(eng.tracer.chrome()) == []
+
+    def test_prefill_and_decode_step_keep_their_boundaries(self, tiny):
+        """One ``prefill`` a request and one ``decode_step`` a step, as
+        before; each span's explicit start is the old end-stamp
+        reconstruction (``ts - dur_ms``), and its parts lie inside it."""
+        model, params = tiny
+        eng, _ = _traced_run(model, params)
+        events = list(eng.tracer.events)
+        steps = [e for e in events if e.kind == "decode_step"]
+        assert len(steps) == eng.metrics.decode_steps
+        assert len([e for e in events if e.kind == "prefill"]) == 3
+        by_id = {e.data["span"]: e for e in events if e.data and "span" in e.data}
+        for e in by_id.values():
+            assert e.ts - e.data["dur_ms"] / 1e3 == pytest.approx(e.data["t0"], abs=1e-9)
+            parent = by_id.get(e.data["parent"])
+            if parent is not None and parent.kind in ("prefill", "decode_step"):
+                assert parent.data["t0"] <= e.data["t0"] and e.ts <= parent.ts
+        assert steps[-1].data["n_active"] >= 1 and steps[-1].data["mode"]
+
+    @pytest.mark.parametrize("family", ["dense", "moe"])
+    def test_device_sites_name_every_block_with_per_layer_counts(self, tiny, tiny_moe, family):
+        model, params = tiny if family == "dense" else tiny_moe
+        eng, _ = _traced_run(model, params)
+        n_layers = model.cfg.n_layers
+        expert = ("ffn/moe_expert", "ffn/router") if family == "moe" else ("ffn/mlp_up",
+                                                                          "ffn/mlp_down")
+        steps = [e.data for e in eng.tracer.events if e.kind == "decode_step"]
+        for d in steps:
+            n, ms = d["sites_n"], d["sites_ms"]
+            assert n["attention"] == n["ffn"] == n_layers
+            assert n["embed"] == n["head"] == n["head/logits"] == n["sample"] == 1
+            assert n["state"] == 2  # the merge and the copy-back
+            for op in ("attention/qkv", "attention/attn_qk", "attention/attn_av",
+                       "attention/out") + expert:
+                assert n[op] >= n_layers, op
+            assert "scatter" not in n
+            blocks = ms["attention"] + ms["ffn"] + ms["state"]
+            assert 0.0 < blocks <= d["device_ms"]
+            assert ms["attention"] >= ms["attention/attn_qk"]
+        for d in (e.data for e in eng.tracer.events if e.kind == "prefill"):
+            assert d["sites_n"]["scatter"] == d["sites_n"]["sample"] == 1
+            assert d["sites_n"]["attention"] == n_layers and "state" not in d["sites_n"]
+        c = eng.tracer.counters
+        assert c["device_ms/decode_step"] == pytest.approx(sum(d["device_ms"] for d in steps))
+        assert c["device_ms/decode_step/attention"] > 0.0 and c["device_ms/prefill/scatter"] > 0.0
+        assert "repro_obs_device_ms_decode_step_ffn " in eng.tracer.prometheus()
+
+    def test_spec_round_is_a_span_with_its_counts(self, tiny):
+        model, params = tiny
+        eng, _ = _traced_run(model, params, spec=SpecConfig(k=2, draft_shift=1))
+        rounds = [e for e in eng.tracer.events if e.kind == "spec_round"]
+        assert rounds and all(e.data["drafted"] == 2 * e.data["n_active"] for e in rounds)
+        spans = {e.data["span"]: e.kind for e in eng.tracer.events if e.data and "span" in e.data}
+        for e in eng.tracer.events:
+            if e.kind in ("decode.replay", "decode.sync"):
+                assert spans[e.data["parent"]] == "spec_round"
+        assert all(e.data["sites_n"]["attention"] >= model.cfg.n_layers for e in rounds)
+        assert validate_chrome(eng.tracer.chrome()) == []
+
+    @pytest.mark.parametrize("over", [{}, {"spec": SpecConfig(k=2, draft_shift=1)},
+                                      {"adapt": AdaptConfig(slo=SLO(max_err=0.5))}],
+                             ids=["plain", "spec", "adapt"])
+    @pytest.mark.parametrize("family", ["dense", "moe"])
+    def test_tracing_off_opens_no_recording(self, tiny, tiny_moe, family, over, monkeypatch):
+        """Tracing off, no device span is ever recorded and no timing event
+        made; the tokens are those of a traced run."""
+        import torch
+
+        from repro_torch.obs import device as obs_device
+
+        model, params = tiny if family == "dense" else tiny_moe
+        opened, made = [], []
+        enter = obs_device.Recording.__enter__
+        monkeypatch.setattr(obs_device.Recording, "__enter__",
+                            lambda self: opened.append(1) or enter(self))
+        monkeypatch.setattr(torch.cuda, "Event", lambda *a, **kw: made.append(1))
+        reqs = _reqs(model.cfg.vocab, 3, max_new=5)
+        base = ServeConfig(batch_slots=2, max_len=32, **over)
+        off = ServeEngine(model, params, config=base).generate_batch(reqs)
+        assert opened == [] and made == []
+        on = ServeEngine(model, params, config=dataclasses.replace(
+            base, trace=TraceConfig())).generate_batch(reqs)
+        assert on == off and opened and made == []  # the CPU stamps the host clock
