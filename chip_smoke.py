@@ -5,9 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/csrc`` (once), holds
+It builds the five CUDA kernels from ``src/repro_torch/csrc`` (once), holds
 each against its plain PyTorch version on the card at the shapes its path
-gives it (the limb, mode-map and double-f32 kernels at the K split
+gives it (the decode-attention kernel at both benchmark cells' shapes, with
+planted faults refused, with bound device-scalar modes, and through
+``flash_attention``'s route; the limb, mode-map and double-f32 kernels at the K split
 ``split_k`` plans, which it prints per shape, and unsplit; the limb and
 mode-map kernels through their weight-streaming body at M <= 16 — also on
 misaligned operands and captured in a CUDA graph — and their tensor-core
@@ -86,6 +88,7 @@ import sys
 import threading
 import time
 import weakref
+from unittest import mock
 
 import numpy as np
 import torch
@@ -107,6 +110,7 @@ from repro_torch.adapt.workload import conditioned_model  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import Mode, PrecisionPolicy  # noqa: E402
+from repro_torch.core.precision import F32_MODES  # noqa: E402
 from repro_torch.core.policy import PRESETS  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.distributed import compress, pipeline  # noqa: E402
@@ -133,6 +137,15 @@ from repro_torch.kernels.limb_matmul.ops import (  # noqa: E402
     split_ranges,
     tile_grid,
 )
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_plain,
+)
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    attention_f64,
+    drop_top_key,
+    held_to_plain,
+)
 from repro_torch.kernels.quantize_mantissa.ops import (  # noqa: E402
     quantize_mantissa_op,
     quantize_mantissa_plain,
@@ -148,7 +161,7 @@ from repro_torch.launch import op_cost  # noqa: E402
 from repro_torch.launch.serve import run_open_loop  # noqa: E402
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.train import mode_timeline, put_batch_on  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, layers  # noqa: E402
 from repro_torch.models.lm import (  # noqa: E402
     _block_apply,
     copy_state_,
@@ -335,7 +348,15 @@ KERNEL_INFO = {
     "limb_matmul_dd": dict(
         route="cuda", source="src/repro_torch/csrc/limb_matmul_dd.cu",
         replaces="src/repro/kernels/limb_matmul/limb_matmul.py:123"),
+    "decode_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces=None, why="the reference's attention is limb algebra (no TPU kernel); the "
+                           "port's chunk loop of limb einsums took most of the decode step"),
 }
+#: the decode-attention kernel at the benchmark cells' shapes: (cell, slots,
+#: cache rows, KV heads, query heads a KV head, head dim)
+DECODE_ATTN_SHAPES = (("phi3mini-decode-m16", 16, 2048, 32, 1, 96),
+                      ("phi35moe-decode-m16", 16, 1024, 8, 4, 128))
 #: kernels no serving path calls (as in the reference): their path is their
 #: own public entry point, driven in the kernels phase
 ENTRY_POINT_KERNELS = {"limb_matmul_dd": "repro_torch.kernels.limb_matmul.limb_matmul_dd"}
@@ -872,6 +893,121 @@ def drive_dd_entry_point(gen) -> int:
     return launches
 
 
+def decode_attention_case(slots: int, rows: int, hkv: int, g: int, hd: int, seed: int = 0):
+    """q and a per-slot bf16 cache whose slots hold ShareGPT-like contexts:
+    lognormal (sigma 1) with a mean of about 620 tokens (161 in and 338 out
+    a request, each slot part way through its answer), cut to the cache."""
+    rng = np.random.default_rng(seed)
+    contexts = [int(min(rows, max(1, round(x))))
+                for x in rng.lognormal(math.log(620.0) - 0.5, 1.0, slots)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((slots, 1, hkv * g, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((slots, rows, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.full((slots, rows), -1, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(contexts):
+        pos[i, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    qpos = torch.tensor(contexts, dtype=torch.int32, device="cuda") - 1
+    return q, k, v, qpos, pos, contexts
+
+
+def check_decode_attention() -> dict:
+    """The decode-attention kernel against its plain version at both cells'
+    shapes at M8, M16 and M24 (``held_to_plain``: each element within what
+    p's other split allows, and as accurate as the plain version against
+    float64), planted faults refused at each mode (one key too few, the
+    neighbouring modes), modes bound as device scalars equal to the same
+    host modes, and ``flash_attention`` at M16 on the limb kernel's policy:
+    one launch, the wrapper's bits."""
+    worst, cases = 0.0, []
+    for cell, slots, rows, hkv, g, hd in DECODE_ATTN_SHAPES:
+        q, k, v, qpos, pos, _ = decode_attention_case(slots, rows, hkv, g, hd)
+        exact, wabs = attention_f64(q, k, v, qpos, pos)
+        dropped = drop_top_key(q, k, qpos, pos)
+        scalar = torch.zeros((), dtype=torch.int32, device="cuda")
+        for i, mode in enumerate(F32_MODES):
+            plain = decode_attention_plain(q, k, v, qpos, pos, qk_mode=mode, av_mode=mode)
+            got = decode_attention(q, k, v, qpos, pos, qk_mode=mode, av_mode=mode)
+            res = held_to_plain(got, plain, exact, wabs, qk_mode=mode, av_mode=mode)
+            check(res["ok"], f"decode_attention {cell} {mode.name}: {res}")
+            worst = max(worst, res["max_err_over_bound"])
+            planted = {"key_dropped": decode_attention(q, k, v, qpos, dropped, qk_mode=mode,
+                                                       av_mode=mode)}
+            for j in (i - 1, i + 1):
+                if 0 <= j < len(F32_MODES):
+                    planted[F32_MODES[j].name] = decode_attention(q, k, v, qpos, pos,
+                                                              qk_mode=F32_MODES[j],
+                                                              av_mode=F32_MODES[j])
+            refused = {}
+            for name, bad in planted.items():
+                r = held_to_plain(bad, plain, exact, wabs, qk_mode=mode, av_mode=mode)
+                check(not r["ok"], f"decode_attention {cell} {mode.name}: planted {name} "
+                                   f"passed {r}")
+                refused[name] = {key: r[key] for key in ("max_err_over_bound", "rms_err")}
+            scalar.fill_(int(mode))
+            check(torch.equal(got, decode_attention(q, k, v, qpos, pos, qk_mode=scalar,
+                                                    av_mode=scalar)),
+                  f"decode_attention {cell} {mode.name}: a device-scalar mode differs")
+            cases.append(dict(cell=cell, mode=mode.name, **res, planted_refused=refused))
+        before = build.launch_counts()["decode_attention"]
+        via = layers.flash_attention(q, k, v, PrecisionPolicy(default=Mode.M16, impl="pallas"),
+                                     q_offset=qpos, kv_positions=pos)
+        check(build.launch_counts()["decode_attention"] == before + 1,
+              f"flash_attention at {cell}'s shape did not launch the decode-attention kernel")
+        check(torch.equal(via, decode_attention(q, k, v, qpos, pos, qk_mode=Mode.M16,
+                                                av_mode=Mode.M16)),
+              "flash_attention's route differs from the wrapper")
+        del q, k, v, exact, wabs
+    return {"max_err_over_bound": worst, "cases": cases}
+
+
+def check_decode_attention_replays(eng, what: str) -> None:
+    """Each compiled step of an engine whose attention sites are bound at
+    run time launches the decode-attention kernel once a layer a replay."""
+    n = eng.model.cfg.n_layers
+    for g in ("_step_graph", "_probe_graph"):
+        per = getattr(eng, g).launches.get("decode_attention", 0)
+        check(per == n, f"{what}: a {g} replay launches the decode-attention kernel {per} "
+                        f"times for {n} layers")
+
+
+def time_decode_attention() -> list[dict]:
+    """The decode-attention kernel at both cells' shapes (M16, ShareGPT-like
+    contexts) beside its bound (each valid K and V row read once, q read and
+    the output written once, at the memory rate), its plain version, and one
+    ``scaled_dot_product_attention`` call in bf16 with a boolean mask (a
+    yardstick only: the port never calls it).  Operand copies rotate past the
+    L2 cache, as a decode step finds the cache: cold."""
+    rows_out = []
+    for cell, slots, rows, hkv, g, hd in DECODE_ATTN_SHAPES:
+        q, k, v, qpos, pos, contexts = decode_attention_case(slots, rows, hkv, g, hd)
+        n_rot = n_rotations(2 * k.nbytes)
+        ks = [k] + [k.clone() for _ in range(n_rot - 1)]
+        vs = [v] + [v.clone() for _ in range(n_rot - 1)]
+        kw = dict(qk_mode=Mode.M16, av_mode=Mode.M16)
+        ms, enqueue = time_ms(lambda i: decode_attention(q, ks[i], vs[i], qpos, pos, **kw), n_rot)
+        plain_ms, _ = time_ms(
+            lambda i: decode_attention_plain(q, ks[i], vs[i], qpos, pos, **kw), n_rot,
+            warmup=1, reps=2, samples=3)
+        valid_bytes = 2 * sum(contexts) * hkv * hd * 2
+        bound_ms = (valid_bytes + 2 * q.nbytes) / HBM_BW * 1e3
+        qt = q.transpose(1, 2).to(torch.bfloat16)
+        lib_kv = [(x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous(),
+                   y.transpose(1, 2).repeat_interleave(g, dim=1).contiguous())
+                  for x, y in zip(ks, vs)]
+        mask = ((pos >= 0) & (pos <= qpos[:, None]))[:, None, None, :]
+        library_ms, _ = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            qt, lib_kv[i][0], lib_kv[i][1], attn_mask=mask), n_rot)
+        rows_out.append(dict(
+            kernel="decode_attention", cell=cell, slots=slots, rows=rows, kv_heads=hkv,
+            group=g, head_dim=hd, limbs=2, contexts=contexts, valid_kv_bytes=valid_bytes,
+            ms=ms, enqueue_ms=enqueue, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            library_ms=library_ms,
+            library_is="torch scaled_dot_product_attention, bf16, boolean mask"))
+        del ks, vs, lib_kv
+    return rows_out
+
+
 def time_dd(gen) -> list[dict]:
     """Time the double-f32 kernel at every DD case, at its planned K split
     and unsplit (``splits=1``) in the same run, beside its bound, its plain
@@ -1066,8 +1202,10 @@ def phase_kernels(gen) -> tuple[dict, dict]:
     checks["max_abs_err"]["limb_matmul_dd"] = dd["max_abs_err"]
     checks["max_rel_err"]["limb_matmul_dd"] = dd["max_rel_err"]
     checks["entry_point_launches"] = {"limb_matmul_dd": drive_dd_entry_point(gen)}
+    checks["decode_attention"] = check_decode_attention()
     timing = time_kernels(gen)
     timing["rows"] += time_dd(gen)
+    timing["rows"] += time_decode_attention()
     for row in timing["rows"]:
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["path"] = ("wide" if row["kernel"] == "limb_matmul_dd"
@@ -1470,6 +1608,7 @@ def phase_serve_adapt(params_cache, n_layers):
     check(eng.metrics.mode_timeline == e_eng.metrics.mode_timeline,
           "serve_adapt: the captured and eager mode timelines differ")
     check(counts["tile_matmul"] > 0, "serve_adapt launched the mode-map kernel no time")
+    check_decode_attention_replays(eng, "serve_adapt")
     check(build.BUILD_COUNT == 1, f"build count {build.BUILD_COUNT} != 1 after mode shifts")
     check(len(eng.controller.history) > 0, "no probe ran")
     # one graph per compiled step (decode step, probe) across every shift
@@ -2308,6 +2447,7 @@ def phase_serve_tenants(params_cache):
     check(captures == {2} and eng.graph_capture_count == 2,
           f"serve_tenants: capture counts {sorted(captures)} (want only 2)")
     check(counts["tile_matmul"] > 0, "serve_tenants launched the mode-map kernel no time")
+    check_decode_attention_replays(eng, "serve_tenants")
     probed = {n: sum(n in t["tenants"] for t in ticks) for n in eng.tenant_tables}
     check(probed == {n: record[n]["probes"] for n in record},
           f"serve_tenants: probes {({n: r['probes'] for n, r in record.items()})} "
@@ -3664,9 +3804,11 @@ def phase_cost(params_cache, card: str) -> dict:
         the measured median step's share of ``train_bound_ms``, beside the
         time of the eager-dispatch bytes (each op one pass over memory);
     (b) ``serve_static``'s decode step (4 slots, M16 ``pallas``) recorded on
-        the card and on the CPU's plain path at the same shapes: the counts
-        equal, and the kernel events equal ``build.launch_counts()`` for
-        that one eager step;
+        the card and on the CPU's plain path at the same shapes: with the
+        decode-attention route held off on the card (its chunk loop is the
+        CPU's) the counts equal; as the program runs, the card's attention
+        is one decode-attention kernel event a layer; the kernel events
+        equal ``build.launch_counts()`` for that one eager step;
     (c) ``analysis.check(all_paths(quick=True, device='cuda'))``: no
         violation; ``pmm-runtime-tile`` is one mode-map launch, 0 selects;
     (d) ``DRYRUN_CELLS`` on ``pod16x16`` on this machine's CPU (started
@@ -3733,22 +3875,30 @@ def phase_cost(params_cache, card: str) -> dict:
     serve_cfg = ServeConfig(batch_slots=4, max_len=96)
     tokens = torch.randint(0, model.cfg.vocab, (4, 1), dtype=torch.int32, device="cuda")
     per_device = {}
-    for dev in ("cuda", "cpu"):
+    for arm in ("cuda", "cuda_chunk_loop", "cpu"):
+        dev = "cpu" if arm == "cpu" else "cuda"
         m = model if dev == "cuda" else build_model(model.cfg, device="cpu")
         p = params if dev == "cuda" else tree.map_tree(lambda x: x.cpu(), params)
         eng = ServeEngine(m, p, config=serve_cfg)
         active = torch.ones((4,), dtype=torch.bool, device=dev)
         build.reset_launch_counts()
-        _, rec = op_cost.record_ops(eng._masked_step, p, tokens.to(dev), eng.state, active)
+        with (mock.patch.object(layers, "decode_kernel_misses", lambda *a, **kw: ("held off",))
+              if arm == "cuda_chunk_loop" else contextlib.nullcontext()):
+            _, rec = op_cost.record_ops(eng._masked_step, p, tokens.to(dev), eng.state, active)
         launches = {k: v for k, v in build.launch_counts().items() if v}
-        per_device[dev] = dict(counted(rec), kernel_events=kernel_events(rec), launches=launches)
+        per_device[arm] = dict(counted(rec), kernel_events=kernel_events(rec), launches=launches)
         del eng, rec, p, m
-    cuda_b, cpu_b = per_device["cuda"], per_device["cpu"]
-    check({k: cuda_b[k] for k in ("flops", "hbm_bytes", "events", "kernel_events")}
-          == {k: cpu_b[k] for k in ("flops", "hbm_bytes", "events", "kernel_events")},
-          f"cost (b): card {cuda_b} != CPU {cpu_b}")
-    check(cuda_b["kernel_events"] == cuda_b["launches"] and cuda_b["launches"],
-          f"cost (b): kernel events {cuda_b['kernel_events']} != launches {cuda_b['launches']}")
+    cuda_b, loop_b, cpu_b = (per_device[a] for a in ("cuda", "cuda_chunk_loop", "cpu"))
+    keys = ("flops", "hbm_bytes", "events", "kernel_events")
+    check({k: loop_b[k] for k in keys} == {k: cpu_b[k] for k in keys},
+          f"cost (b): card (chunk loop) {loop_b} != CPU {cpu_b}")
+    for arm in (cuda_b, loop_b):
+        check(arm["kernel_events"] == arm["launches"] and arm["launches"],
+              f"cost (b): kernel events {arm['kernel_events']} != launches {arm['launches']}")
+    check(cuda_b["launches"].get("decode_attention") == model.cfg.n_layers
+          and "decode_attention" not in loop_b["launches"],
+          f"cost (b): decode-attention launches {cuda_b['launches']} for "
+          f"{model.cfg.n_layers} layers")
     check(not cpu_b["launches"], "cost (b): the CPU arm launched a kernel")
     out["b_decode_step_m16_pallas"] = per_device
     release()
@@ -3934,6 +4084,17 @@ def kernels_line(checks, timing, main_counts) -> dict:
     out = []
     for name, info in KERNEL_INFO.items():
         rows = [r for r in timing["rows"] if r["kernel"] == name]
+        if name not in primary:  # no GEMM shape: its rows at the benchmark cells' shapes
+            out.append(dict(
+                name=name, **info, launches=main_counts[name],
+                max_err_over_bound=checks[name]["max_err_over_bound"],
+                err_is="largest |kernel - plain| over the cells' shapes at M8/M16/M24 over "
+                       "its bound (held_to_plain)",
+                cells=[{key: r[key] for key in ("cell", "ms", "enqueue_ms", "plain_ms",
+                                                "bound_ms", "bound_by", "share_of_bound",
+                                                "library_ms", "valid_kv_bytes")}
+                       for r in rows]))
+            continue
         m, k, n, limbs = primary[name]
         at = [r for r in rows if (r["m"], r["k"], r["n"], r["limbs"]) == (m, k, n, limbs)]
         main = next(r for r in at if r.get("via", name) == name)  # the kernel alone

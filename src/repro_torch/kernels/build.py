@@ -1,6 +1,6 @@
 """Build, load and bind the port's CUDA kernels.
 
-The four kernels live in ``repro_torch/csrc/*.cu`` with a plain C
+The five kernels live in ``repro_torch/csrc/*.cu`` with a plain C
 interface.  At first use every source is compiled by its own ``nvcc``
 process (all started together) and the objects are linked into ONE shared
 library under ``build/repro_torch/``, which is loaded with ``ctypes``.
@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 SOURCES = ("quantize_mantissa.cu", "limb_matmul.cu", "tile_matmul.cu",
-           "limb_matmul_dd.cu")
+           "limb_matmul_dd.cu", "decode_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -34,7 +34,7 @@ BUILD_COUNT = 0
 #: ptxas's registers, shared memory and spills per kernel)
 BUILD_LOG = ""
 LAUNCHES = {"quantize_mantissa": 0, "limb_matmul": 0, "tile_matmul": 0,
-            "limb_matmul_dd": 0}
+            "limb_matmul_dd": 0, "decode_attention": 0}
 #: the same launches of the limb, mode-map and double-f32 kernels, by the
 #: device body they ran (``kernels.limb_matmul.ops.gemm_body``)
 BODY_LAUNCHES = {"skinny": 0, "mma": 0, "wide": 0}
@@ -133,12 +133,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (a, b, hi, lo, workspace, m, n, k, limbs, bm, bn, bk, splits, stream)
     lib.rmpm_limb_matmul_dd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     lib.rmpm_limb_matmul_dd.restype = i
+    # (q, k, v, k_sb, k_sr, v_sb, v_sr, q_pos, kv_pos, pos_sb, workspace, out,
+    #  qk_mode, av_mode, b, s, hkv, g, hd, lq, lv, rounding, causal, window,
+    #  scale, stream)
+    lib.rmpm_decode_attention.argtypes = [p, p, p, ll, ll, ll, ll, p, p, ll, p, p, p, p,
+                                          i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.rmpm_decode_attention.restype = i
     lib.rmpm_error_string.argtypes = [i]
     lib.rmpm_error_string.restype = ctypes.c_char_p
-    # per device: allow the skinny and tensor-core tile kernels their rings
-    for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
+    # per device: allow the skinny and tensor-core tile kernels their rings,
+    # the decode-attention kernel its tiles
+    for fn in _prepare_fns(lib):
         fn.argtypes = []
         fn.restype = i
+
+
+def _prepare_fns(lib: ctypes.CDLL) -> tuple:
+    return (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare,
+            lib.rmpm_decode_attention_prepare)
 
 
 def library(verbose: bool = False) -> ctypes.CDLL:
@@ -153,9 +165,9 @@ def library(verbose: bool = False) -> ctypes.CDLL:
 
 def prepare_device(lib: ctypes.CDLL) -> None:
     """Once per device, on the current device before its first launch of the
-    limb or mode-map kernel: allow their skinny and tensor-core tile
-    instantiations the dynamic shared memory of their rings
-    (``rmpm::allow_smem``).  The
+    limb, mode-map or decode-attention kernel: allow the first two's skinny
+    and tensor-core tile instantiations the dynamic shared memory of their
+    rings (``rmpm::allow_smem``), and the last its tiles.  The
     port's CUDA graphs capture a step only after running it once eagerly
     (``serve.graphs.CompiledStep``), so this runs before any capture."""
     import torch
@@ -163,8 +175,8 @@ def prepare_device(lib: ctypes.CDLL) -> None:
     index = torch.cuda.current_device()
     if index in _PREPARED:
         return
-    for fn in (lib.rmpm_limb_matmul_prepare, lib.rmpm_tile_matmul_prepare):
-        check_launch(lib, fn(), "allowing the kernels their shared-memory rings")
+    for fn in _prepare_fns(lib):
+        check_launch(lib, fn(), "allowing the kernels their shared memory")
     _PREPARED.add(index)
 
 

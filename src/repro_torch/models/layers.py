@@ -25,6 +25,8 @@ from repro_torch.core.precision import F32_MODES, DoubleF32
 from repro_torch.core.rmpm import mp_einsum, mp_einsum_runtime, mp_matmul_runtime
 from repro_torch.device import backend_of
 from repro_torch.distributed.sharding import BATCH_AXES, constrain, contiguous_stride, split_dim
+from repro_torch.kernels.decode_attention.ops import (
+    AV_EQ, MAX_GROUP, MAX_HEAD_DIM, QK_EQ, chunked_attention, decode_attention, kernel_takes_kv)
 from repro_torch.obs.device import device_span
 from repro_torch.plan import execute, plan_matmul
 
@@ -540,15 +542,56 @@ def kv_view(cache: KVCache | PagedKVCache):
     return cache.k, cache.v, cache.k_scale, cache.v_scale
 
 
-def _dequant_chunk(x: Tensor, scale: Tensor | None) -> Tensor:
-    if scale is None:
-        return x.to(torch.float32)
-    return x.to(torch.float32) * scale
-
-
 # ---------------------------------------------------------------------------
 # Flash attention (chunked-KV online softmax — never materializes S x S)
 # ---------------------------------------------------------------------------
+
+#: the op classes of attention's two contractions
+ATTN_SITES = ("attn_qk", "attn_av")
+
+
+def decode_kernel_misses(q, k, v, policy: PrecisionPolicy, k_scale=None,
+                         v_scale=None) -> tuple[str, ...]:
+    """Why ``flash_attention`` keeps its chunk loop for this call: the names
+    of the decode-attention kernel's unmet conditions, none where the kernel
+    takes it.  It takes a call on the card (``device``) of one query a row
+    (``sq``) that needs no gradient (``grad``), over a bf16 cache with no
+    scales (``cache``), under a kernel policy (``impl``: pallas or tile)
+    whose two attention sites are f32-ladder modes (``mode``), static or
+    bound at run time (the kernel reads a bound device scalar), at a head
+    dim that is a multiple of 16 up to 256 and at most 16 query heads a KV
+    head (``shape``).  Only what the call can observe decides.  (The mesh
+    path, ``_flash_attention_on_shards``, runs the chunk loop itself.)"""
+    misses = []
+    if not q.is_cuda:
+        misses.append("device")
+    if q.shape[1] != 1:
+        misses.append("sq")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        misses.append("grad")
+    bf16 = k.dtype == torch.bfloat16 and v.dtype == torch.bfloat16
+    if not bf16 or k_scale is not None or v_scale is not None:
+        misses.append("cache")
+    if policy.impl not in ("pallas", "tile"):
+        misses.append("impl")
+    if any(policy.mode_for(op) not in F32_MODES for op in ATTN_SITES):
+        misses.append("mode")
+    hq, hd, hkv = q.shape[2], q.shape[3], k.shape[2]
+    if hd % 16 or hd > MAX_HEAD_DIM or hq % hkv or hq // hkv > MAX_GROUP:
+        misses.append("shape")
+    return tuple(misses)
+
+
+def _site_mode(op: str, policy: PrecisionPolicy):
+    """The mode ``pein`` runs ``op`` at: a bound device scalar as it is, a
+    bound host int clamped to the f32 ladder (``mp_einsum_runtime``'s
+    host branch), else the policy's static mode."""
+    rt = runtime_mode_for(op)
+    if rt is None:
+        return policy.mode_for(op)
+    if isinstance(rt, Tensor):
+        return rt
+    return F32_MODES[min(max(int(rt) - 1, 0), len(F32_MODES) - 1)]
 
 
 def flash_attention(
@@ -566,69 +609,45 @@ def flash_attention(
     v_scale: Tensor | None = None,
     chunk: int = 1024,
 ) -> Tensor:
-    """Online-softmax attention, KV walked in chunks (a Python loop).
+    """Online-softmax attention, KV walked in chunks (a Python loop:
+    ``kernels.decode_attention.chunked_attention``).
 
     GQA: Hq = Hkv * G.  Scores and attention-value products go through the
     RMPM engine ('attn_qk' / 'attn_av' op classes) — which is why no fused
-    attention operator can stand in for this function.
+    attention operator can stand in for this function.  Where
+    ``decode_kernel_misses`` names nothing (a decode step on the card over a
+    bf16 cache at f32-ladder modes), the two contractions run in the
+    hand-written decode-attention kernel instead, at the modes ``pein``
+    would run (a bound site's too), in one device span ``attn_decode``; a
+    K or V laid out otherwise than the kernel reads is copied first.
     """
-    b, sq, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    dev = q.device
-    g = hq // hkv
-    chunk = min(chunk, skv)
-    n_chunks = -(-skv // chunk)
-    pad = n_chunks * chunk - skv
-    if pad:
-        def padded(x):
-            return F.pad(x, (0, 0, 0, 0, 0, pad))
-
-        k, v = padded(k), padded(v)
-        if k_scale is not None:
-            k_scale, v_scale = padded(k_scale), padded(v_scale)
-        if kv_positions is not None:
-            kv_positions = F.pad(kv_positions, (0, pad), value=-1)
-    if kv_len is None:
-        kv_len = skv
+    if decode_kernel_misses(q, k, v, policy, k_scale, v_scale):
+        return _flash_attention_chunks(
+            q, k, v, policy, causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+            kv_positions=kv_positions, k_scale=k_scale, v_scale=v_scale, chunk=chunk)
+    b, skv, dev = q.shape[0], k.shape[1], q.device
     if kv_positions is None:
-        kv_positions = torch.arange(n_chunks * chunk, dtype=torch.int32, device=dev)
-        kv_positions = torch.where(
-            kv_positions < kv_len, kv_positions,
-            torch.full_like(kv_positions, -1))
+        kv_positions = torch.arange(skv, dtype=torch.int32, device=dev)
+        if kv_len is not None:
+            kv_positions = torch.where(kv_positions < kv_len, kv_positions,
+                                       torch.full_like(kv_positions, -1))
+    if not isinstance(q_offset, Tensor):
+        q_offset = torch.full((b,), q_offset, dtype=torch.int32, device=dev)
+    with device_span("attn_decode"):
+        k, v = (x if kernel_takes_kv(x) else x.clone(memory_format=torch.contiguous_format)
+                for x in (k, v))
+        return decode_attention(
+            q, k, v, q_offset.expand(b), kv_positions, qk_mode=_site_mode("attn_qk", policy),
+            av_mode=_site_mode("attn_av", policy), rounding=policy.rounding, causal=causal,
+            window=window)
 
-    qg = split_dim(q, 2, hkv, g).to(torch.float32) * (hd**-0.5)
-    q_offset = torch.as_tensor(q_offset, device=dev)
-    # per-slot decode: q_offset (B,) -> q_pos (B, Sq); shared: (Sq,)
-    q_pos = (q_offset[:, None] if q_offset.dim() else q_offset) + torch.arange(sq, device=dev)
-    q_b = q_pos if q_pos.dim() == 2 else q_pos[None, :]  # (B|1, Sq)
 
-    m = torch.full((b, hkv, g, sq), -float("inf"), dtype=torch.float32, device=dev)
-    lse = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=dev)
-    for ci in range(n_chunks):
-        sl = slice(ci * chunk, (ci + 1) * chunk)
-        kt = _dequant_chunk(k[:, sl], k_scale[:, sl] if k_scale is not None else None)
-        vt = _dequant_chunk(v[:, sl], v_scale[:, sl] if v_scale is not None else None)
-        s = pein("bqhgd,bkhd->bhgqk", qg, kt, "attn_qk", policy)  # (B,Hkv,G,Sq,C)
-        kv_pos = kv_positions[..., sl]
-        # broadcast to (B|1, Sq|1, C) so per-slot positions mask per batch row
-        kv_b = kv_pos if kv_pos.dim() == 2 else kv_pos[None, :]  # (B|1, C)
-        valid = kv_b[:, None, :] >= 0
-        if causal:
-            valid = valid & (kv_b[:, None, :] <= q_b[:, :, None])
-        if window:
-            valid = valid & (kv_b[:, None, :] > q_b[:, :, None] - window)
-        s = torch.where(valid[:, None, None], s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        lse = lse * alpha + p.sum(dim=-1)
-        pv = pein("bhgqk,bkhd->bhgqd", p, vt, "attn_av", policy)
-        acc = acc * alpha[..., None] + pv
-        m = m_new
-    out = acc / torch.clamp(lse, min=1e-30)[..., None]
-    # (B,Hkv,G,Sq,hd) -> (B,Sq,Hq,hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd)
+def _flash_attention_chunks(q, k, v, policy: PrecisionPolicy, **kw) -> Tensor:
+    """``chunked_attention`` with the policy-routed einsums (device spans
+    ``attn_qk`` and ``attn_av``)."""
+    return chunked_attention(
+        q, k, v, lambda qg, kt: pein(QK_EQ, qg, kt, "attn_qk", policy),
+        lambda p, vt: pein(AV_EQ, p, vt, "attn_av", policy), **kw)
 
 
 def _batch_laid_out(x, mesh, qp, batched_ndim: int):
@@ -654,7 +673,8 @@ def _flash_attention_on_shards(q, k, v, policy, *, causal: bool, window: int,
     divides it), a sequence shard of q is kept with K/V whole there, and
     anything else is replicated first.  (DTensor's own rules for the
     einsums would flatten (batch, heads), which torch 2.11 refuses when
-    either is sharded.)"""
+    either is sharded.)  Each rank runs the chunk loop: the mesh path
+    does not take the decode-attention kernel."""
     mesh = q.device_mesh
     sizes = mesh.shape
     qp, kvp, seq_dims = [], [], []
@@ -680,10 +700,11 @@ def _flash_attention_on_shards(q, k, v, policy, *, causal: bool, window: int,
     coord, first = mesh.get_coordinate(), 0
     for i in seq_dims:  # mesh order: the first dimension is the outer one
         first = first * sizes[i] + coord[i]
-    out = flash_attention(ql, kl, vl, policy, causal=causal, window=window, chunk=chunk,
-                          q_offset=_batch_laid_out(q_offset, mesh, qp, 1) + first * ql.shape[1],
-                          kv_positions=_batch_laid_out(kv_positions, mesh, kvp, 2),
-                          k_scale=scales[0], v_scale=scales[1])
+    out = _flash_attention_chunks(
+        ql, kl, vl, policy, causal=causal, window=window, chunk=chunk,
+        q_offset=_batch_laid_out(q_offset, mesh, qp, 1) + first * ql.shape[1],
+        kv_positions=_batch_laid_out(kv_positions, mesh, kvp, 2),
+        k_scale=scales[0], v_scale=scales[1])
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 

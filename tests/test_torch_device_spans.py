@@ -151,6 +151,11 @@ def test_traced_engine_times_its_blocks_on_the_card(cuda, family, monkeypatch):
         blocks = d["sites_ms"]["attention"] + d["sites_ms"]["ffn"] + d["sites_ms"]["state"]
         assert 0.0 < blocks <= d["device_ms"] <= d["dur_ms"]
         assert d["sites_n"]["attention"] == d["sites_n"]["ffn"] == 2
+        # the decode-attention kernel's launches, one span a layer, in place
+        # of the chunk loop's einsums
+        assert d["sites_n"]["attention/attn_decode"] == 2
+        assert 0.0 < d["sites_ms"]["attention/attn_decode"] <= d["sites_ms"]["attention"]
+        assert "attention/attn_qk" not in d["sites_n"] and "attention/attn_av" not in d["sites_n"]
     op = "ffn/moe_expert" if family == "moe" else "ffn/mlp_up"
     assert steps[-1]["sites_ms"][op] > 0.0
     captures = [e for e in events if e.kind == "capture"]
