@@ -1,19 +1,21 @@
 """Deciding ``correct``: the served tokens held against the plain reference.
 
-Once the window has closed and the program's state is freed, the reference
-(``reference.model.Replay``) follows the run: every prefill and decode step
-that touched a judged request, with the same rows in the same order, fed
-the tokens the program served.  At every served token it reads the gap by
-which that token's reference logit lies below the reference's best; the
-widest gap is compared with the cell's limit.
+Once the window has closed and the program's state is freed, the
+reference (the ``Replay`` of the configuration's family) follows the run:
+every prefill and decode step that touched a judged request, with the same
+rows in the same order, fed the tokens the program served.  At every
+served token it reads the gap by which that token's reference logit lies
+below the reference's best; the widest gap is compared with the cell's
+limit.
 
-Which requests are judged: a dense model's rows are independent, so every
-request that holds a slot when the window opens (one a slot, so a fault
-that hits some slots is seen), the one with the most served tokens, and a
-sample drawn from the seed up to the mix's ``judge_requests``; a MoE
-model's rows share expert capacity within a decode step, so every
-request, and every step must hold every slot (a closed loop keeps them
-full).
+Which requests are judged turns on whether the rows of one step share
+state (the family's ``coupled_rows``).  Independent rows (a dense model):
+every request that holds a slot when the window opens (one a slot, so a
+fault that hits some slots is seen), the one with the most served tokens,
+and a sample drawn from the seed up to the mix's ``judge_requests``.
+Coupled rows (a MoE model's rows share expert capacity within a decode
+step): every request, and every step must hold every slot (a closed loop
+keeps them full).
 """
 from __future__ import annotations
 
@@ -22,12 +24,17 @@ import torch
 
 from harness import gen
 from harness.drive import Timeline
-from reference.model import Replay, Sizes, gap
 
 
-def judged(tl: Timeline, sz: Sizes, n: int, seed: int) -> set[int]:
+def gap(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    """By how much the served ``token``'s logit lies below the best:
+    logits (..., V), token (...,) -> (...,) >= 0."""
+    return logits.max(dim=-1).values - logits.gather(-1, token[..., None])[..., 0]
+
+
+def judged(tl: Timeline, coupled: bool, n: int, seed: int) -> set[int]:
     served = [rid for rid, toks in tl.tokens.items() if toks]
-    if sz.moe or n >= len(served):
+    if coupled or n >= len(served):
         return set(served)
     first = next((st for st in tl.steps if st.t0 >= tl.t_open and (st.decode or st.admitted)),
                  None)
@@ -40,11 +47,10 @@ def judged(tl: Timeline, sz: Sizes, n: int, seed: int) -> set[int]:
 
 
 @torch.no_grad()
-def readings(tl: Timeline, sz: Sizes, params: dict, slots: int, max_len: int,
-             rids: set[int], device) -> dict:
+def readings(tl: Timeline, rep, coupled: bool, slots: int, rids: set[int], device) -> dict:
     """The widest gap over every served token of ``rids``, how many tokens
-    were judged, and the share whose token was the reference's best."""
-    rep = Replay(sz, params, slots, max_len, device)
+    were judged, and the share whose token was the reference's best;
+    ``rep`` is the family's ``Replay`` with ``slots`` rows."""
     fed = {}  # rid -> tokens the replay has taken in (prefill's first counted)
     gaps, agree = [], []
 
@@ -68,10 +74,10 @@ def readings(tl: Timeline, sz: Sizes, params: dict, slots: int, max_len: int,
         rows = [rid for rid in st.decode if rid in rids]
         if not rows:
             continue
-        if sz.moe and len(rows) != slots:
+        if coupled and len(rows) != slots:
             raise RuntimeError(
-                f"a MoE decode step held {len(rows)} of {slots} judged rows: its routing "
-                "cannot be followed")
+                f"a decode step of coupled rows held {len(rows)} of {slots} judged rows: the "
+                "reference cannot follow it")
         inp = torch.tensor([tl.tokens[r][fed[r] - 1] for r in rows], device=device)
         out = torch.tensor([tl.tokens[r][fed[r]] for r in rows], device=device)
         judge(rep.decode(rows, inp), out)

@@ -19,8 +19,7 @@ import sys
 import time
 from pathlib import Path
 
-from harness import check, drive, kcache, spec, trace, weights
-from reference.model import Sizes
+from harness import check, drive, kcache, spec, trace
 
 #: the port and its neighbours that must not be loaded: compared by whole
 #: top-level module name
@@ -43,7 +42,7 @@ def forbidden_modules() -> list[str]:
 class Run:
     """Everything a metric reader may read of one run."""
 
-    def __init__(self, cell: spec.Cell, sz: Sizes, tl: drive.Timeline, setup_s: float):
+    def __init__(self, cell: spec.Cell, sz, tl: drive.Timeline, setup_s: float):
         self.cell, self.sizes, self.timeline, self.setup_s = cell, sz, tl, setup_s
         self.traffic = cell.traffic
         self.mode = cell.config["serving"]["mode"]
@@ -67,8 +66,8 @@ def serve(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: str,
 
     sz, tr = cell.sizes, cell.traffic
     kernel_build = kcache.load(build_dir) if device == "cuda" else None
-    params = weights.make(sz, seed, device)
-    model = build_model(spec.arch_of(cell.config, mode, impl), device=device)
+    params = cell.family.weights(sz, seed, device)
+    model = build_model(spec.arch_of(cell, mode, impl), device=device)
     engine = ServeEngine(model, params, config=ServeConfig(
         batch_slots=tr["slots"], max_len=tr["max_len"],
         trace=TraceConfig(capacity=1 << 22) if traced else None))
@@ -136,10 +135,11 @@ def judge(run: Run, params: dict, seed: int, device) -> tuple[bool, dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tr = run.traffic
-    rids = check.judged(run.timeline, run.sizes, tr["judge_requests"], seed)
-    got = check.readings(run.timeline, run.sizes, params, tr["slots"], tr["max_len"], rids,
-                         device)
+    tr, fam, sz = run.traffic, run.cell.family, run.sizes
+    coupled = fam.coupled_rows(sz)
+    rids = check.judged(run.timeline, coupled, tr["judge_requests"], seed)
+    rep = fam.Replay(sz, params, tr["slots"], tr["max_len"], device)
+    got = check.readings(run.timeline, rep, coupled, tr["slots"], rids, device)
     limits = run.cell.limits["limits"]
     compared = {name: {"value": got[name], "limit": lim} for name, lim in limits.items()}
     ok = got["tokens_judged"] > 0 and all(c["value"] <= c["limit"] for c in compared.values())

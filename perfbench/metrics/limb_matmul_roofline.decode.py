@@ -16,5 +16,6 @@ def read(run):
         return None
     spans = [s for s in run.decodes if dt.t0 <= s.t0 and s.t1 <= dt.t1]
     device = dt.device_time(trace.is_limb_kernel, spans)
-    bound = len(spans) * work.limb_bound_s(run.sizes, run.traffic["slots"], run.mode)
+    bound = len(spans) * work.limb_bound_s(run.cell.family, run.sizes, run.traffic["slots"],
+                                           run.mode)
     return 100.0 * bound / device if device else None

@@ -13,6 +13,6 @@ def read(run):
     flops = wall = 0.0
     for (st, ctx), span in zip(window.decode_contexts(tl), run.decodes, strict=True):
         if tl.t_open <= span.t0 and span.t1 <= tl.t_close:
-            flops += work.decode_flops(sz, ctx)
+            flops += work.decode_flops(run.cell.family, sz, ctx)
             wall += span.t1 - span.t0
     return 100.0 * flops / (wall * work.PEAK_FLOPS) if wall else None

@@ -1,10 +1,22 @@
-"""Plain PyTorch reference of the served models: Phi-3 dense and Phi-3.5-MoE.
+"""The ``gqa`` family: grouped-query attention with RoPE over a bf16 KV
+cache, then a SwiGLU MLP (Phi-3 dense) or a softmax top-k MoE with capacity
+routing (Phi-3.5-MoE), one stacked segment of layers.
 
-Float32 throughout, with TF32 off, and no kernel, no limb split, no CUDA
-graph.  It imports nothing of the program: where the judged output depends
-on a choice the serving system makes (its rounding points, its routing
-groups), that choice is written out again here as a frozen copy of the
-semantics, named where it is used:
+A configuration file names its family (``"reference": "gqa"``) and the
+harness finds everything that depends on the architecture here: ``sizes``
+(the configuration's keys the rest reads; ``vocab`` is what the traffic
+draws from), ``weights`` (the tree in the port's layout, handed to the
+program and to the reference alike), :class:`Replay` (the plain reference),
+``coupled_rows`` (the check's row policy) and the work counts
+``kernel_sites``, ``active_params_per_token`` and ``attention_flops``.  The
+port's ``ArchConfig`` comes from ``gqa_arch.py`` beside this file, so this
+one imports nothing of the program.
+
+The reference is plain PyTorch: float32 throughout, with TF32 off, and no
+kernel, no limb split, no CUDA graph.  Where the judged output depends on a
+choice the serving system makes (its rounding points, its routing groups),
+that choice is written out again here as a frozen copy of the semantics,
+named where it is used:
 
 * the KV cache holds keys and values in bfloat16: a prefill attends over
   its own fresh float32 keys and values, a decode step over the cached,
@@ -22,8 +34,7 @@ semantics, named where it is used:
 
 :class:`Replay` follows a served run: the same prefills, and the same
 decode steps with the same rows in the same order, fed the tokens the
-program served.  It returns, for each served token, the gap by which the
-reference's logit of that token lies below the reference's best.
+program served, and returns the logits of each.
 """
 from __future__ import annotations
 
@@ -57,6 +68,101 @@ class Sizes:
     @property
     def moe(self) -> bool:
         return self.experts > 0
+
+
+def sizes(cfg: dict) -> Sizes:
+    """The reference's sizes from a configuration file's published keys."""
+    d, h = cfg["hidden_size"], cfg["num_attention_heads"]
+    srv = cfg["serving"]
+    return Sizes(
+        n_layers=cfg["num_hidden_layers"], d_model=d, n_heads=h,
+        n_kv_heads=cfg["num_key_value_heads"], d_ff=cfg["intermediate_size"],
+        vocab=cfg["vocab_size"], head_dim=cfg.get("head_dim") or d // h,
+        rope_theta=cfg["rope_theta"], norm_eps=cfg["rms_norm_eps"],
+        experts=cfg.get("num_local_experts", 0), top_k=cfg.get("num_experts_per_tok", 0),
+        capacity_factor=srv.get("moe_capacity_factor", 1.25),
+        group_size=srv.get("moe_group_size", 512))
+
+
+def weights(sz: Sizes, seed: int, device) -> dict:
+    """The benchmark's weights: made on the device from the run's seed, in
+    the type they are served in (float32), one ``torch.randn`` per stacked
+    leaf.
+
+    The tree has the layout the port's ``LanguageModel`` reads (layers
+    stacked on a leading axis under ``params["layers"]["seg0_<kind>"]``,
+    weights ``(d_in, d_out)``), so the same tensors are handed to the
+    program and to the reference.  Norm scales are drawn too (the served
+    norm is ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``), so a reference
+    that drops a scale reads differently."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    L, d, f = sz.n_layers, sz.d_model, sz.d_ff
+    hq, hkv, hd = sz.n_heads, sz.n_kv_heads, sz.head_dim
+
+    def randn(*shape, std):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
+
+    def dense(*shape):
+        return {"w": randn(L, *shape, std=(2.0 / (shape[0] + shape[1])) ** 0.5)}
+
+    block = {
+        "norm1": randn(L, d, std=0.1),
+        "attn": {"wq": dense(d, hq * hd), "wk": dense(d, hkv * hd),
+                 "wv": dense(d, hkv * hd), "wo": dense(hq * hd, d)},
+        "norm2": randn(L, d, std=0.1),
+    }
+    if sz.moe:
+        e, std = sz.experts, (2.0 / (d + f)) ** 0.5
+        block["moe"] = {"router": {"w": randn(L, d, e, std=0.02)},
+                        "gate": randn(L, e, d, f, std=std), "up": randn(L, e, d, f, std=std),
+                        "down": randn(L, e, f, d, std=std)}
+    else:
+        block["mlp"] = {"gate": dense(d, f), "up": dense(d, f), "down": dense(f, d)}
+    return {
+        "embed": {"w": randn(sz.vocab, d, std=0.02)},
+        "final_norm": randn(d, std=0.1),
+        "layers": {"seg0_moe" if sz.moe else "seg0_dense": block},
+        "unembed": {"w": randn(d, sz.vocab, std=0.02)},
+    }
+
+
+def coupled_rows(sz: Sizes) -> bool:
+    """Whether the rows of one decode step share state: a MoE model's rows
+    compete for expert capacity, so the check judges every request and
+    every step must hold every slot; a dense model's rows are independent."""
+    return sz.moe
+
+
+def kernel_sites(sz: Sizes) -> list[tuple[int, list[tuple[int, int]]]]:
+    """(layers, (K, N) of each site of one such layer) of every run of
+    like layers: the two-operand ``mk,kn->mn`` sites the port sends to the
+    limb kernel under an ``impl='pallas'`` policy, the attention
+    projections and a dense layer's SwiGLU.  (The router, the experts,
+    attention's products and the logits are general einsums, outside the
+    kernel.)"""
+    d, hd = sz.d_model, sz.head_dim
+    sites = [(d, sz.n_heads * hd), (d, sz.n_kv_heads * hd), (d, sz.n_kv_heads * hd),
+             (sz.n_heads * hd, d)]
+    if not sz.moe:
+        sites += [(d, sz.d_ff), (d, sz.d_ff), (sz.d_ff, d)]
+    return [(sz.n_layers, sites)]
+
+
+def active_params_per_token(sz: Sizes) -> int:
+    """Weights one token multiplies by: every layer's attention projections
+    and its MLP (a MoE layer: its router and ``top_k`` experts), and the
+    output head.  The embedding is a lookup."""
+    d, hd = sz.d_model, sz.head_dim
+    attn = d * (sz.n_heads + 2 * sz.n_kv_heads) * hd + sz.n_heads * hd * d
+    mlp = (d * sz.experts + sz.top_k * 3 * d * sz.d_ff) if sz.moe else 3 * d * sz.d_ff
+    return sz.n_layers * (attn + mlp) + d * sz.vocab
+
+
+def attention_flops(sz: Sizes, keys: int) -> float:
+    """Scores and weighted values of one query over ``keys`` keys, every
+    layer."""
+    return sz.n_layers * 4.0 * sz.n_heads * sz.head_dim * keys
 
 
 def bf16(x: Tensor) -> Tensor:
@@ -126,15 +232,16 @@ def layer_params(tree: dict, i: int) -> dict:
 class Replay:
     """The reference run over a served schedule.
 
-    ``params`` is the benchmark's tree (``harness.weights``).  Each request
-    gets a row of the reference's own bf16 cache when its prefill is
-    replayed and gives it back when ``release`` is called.
+    ``params`` is the tree ``weights`` made; its layers are taken segment
+    by segment in the tree's order.  Each request gets a row of the
+    reference's own bf16 cache when its prefill is replayed and gives it
+    back when ``release`` is called.
     """
 
     def __init__(self, sz: Sizes, params: dict, rows: int, max_len: int, device):
         self.sz, self.params, self.device = sz, params, device
-        kind = "seg0_moe" if sz.moe else "seg0_dense"
-        self.layers = [layer_params(params["layers"][kind], i) for i in range(sz.n_layers)]
+        self.layers = [layer_params(seg, i) for seg in params["layers"].values()
+                       for i in range(seg["norm1"].shape[0])]
         shape = (sz.n_layers, rows, max_len, sz.n_kv_heads, sz.head_dim)
         self.k = torch.zeros(shape, dtype=torch.bfloat16, device=device)
         self.v = torch.zeros(shape, dtype=torch.bfloat16, device=device)
@@ -152,7 +259,7 @@ class Replay:
 
     def _mlp(self, p: dict, h: Tensor, group: int) -> Tensor:
         """h: (T, D)."""
-        if self.sz.moe:
+        if "moe" in p:
             return moe(p["moe"], h, self.sz, group)
         m = p["mlp"]
         return (F.silu(h @ m["gate"]["w"]) * (h @ m["up"]["w"])) @ m["down"]["w"]
@@ -220,8 +327,3 @@ class Replay:
             self.length[r] += 1
         return self._logits(x[:, 0])
 
-
-def gap(logits: Tensor, token: Tensor) -> Tensor:
-    """By how much the served ``token``'s logit lies below the best:
-    logits (..., V), token (...,) -> (...,) >= 0."""
-    return logits.max(dim=-1).values - logits.gather(-1, token[..., None])[..., 0]

@@ -28,8 +28,9 @@ def cuda():
     return "cuda"
 
 
-TINY = {"hidden_size": 64, "intermediate_size": 96, "num_attention_heads": 4,
-        "num_key_value_heads": 2, "num_hidden_layers": 2, "vocab_size": 4096,
+TINY = {"reference": "gqa", "hidden_size": 64, "intermediate_size": 96,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "num_hidden_layers": 2,
+        "vocab_size": 4096,
         "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
         "serving": {"mode": "M16", "impl": "pallas", "param_dtype": "float32",
                     "kv_cache_dtype": "bfloat16", "attn_chunk": 16, "moe_group_size": 32}}

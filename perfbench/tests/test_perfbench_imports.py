@@ -1,6 +1,8 @@
 """Nothing the benchmark loads has the top-level name of JAX or of the JAX
 package ``repro`` (compared by whole top-level name: ``repro_torch`` is the
-port, not ``repro``)."""
+port, not ``repro``); the plain references load nothing of the port; and
+the harness names no family."""
+import re
 import subprocess
 import sys
 
@@ -51,3 +53,47 @@ def test_benchmark_sources_import_no_jax():
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for name in names:
                 assert name.split(".")[0] not in {"jax", "jaxlib", "flax", "repro"}, path
+
+
+REFERENCE_PROBE = f"""
+import sys
+sys.path[:0] = [{str(BENCH)!r}, {str(ROOT / 'src')!r}]
+from harness import spec
+mod = spec._module(spec.Path(sys.argv[1]))
+assert hasattr(mod, "Replay") or mod.__name__.endswith("__init__"), mod
+print(sorted({{m.split('.')[0] for m in sys.modules}}))
+"""
+
+
+def reference_modules():
+    return [p for p in sorted((BENCH / "reference").glob("*.py"))
+            + sorted((BENCH / "tests" / "families").glob("*.py"))
+            if not p.stem.endswith("_arch")]
+
+
+def test_reference_modules_load_nothing_of_the_port():
+    """Each family's reference, loaded alone in a fresh interpreter (its
+    ``<family>_arch.py`` mapping to the port's ``ArchConfig`` aside)."""
+    paths = reference_modules()
+    assert {p.name for p in paths} >= {"__init__.py", "gqa.py", "dense_then_moe.py"}
+    for path in paths:
+        out = subprocess.run([sys.executable, "-c", REFERENCE_PROBE, str(path)],
+                             capture_output=True, text=True, timeout=300, check=True)
+        loaded = set(eval(out.stdout.splitlines()[-1]))
+        assert "torch" in loaded or path.name == "__init__.py", path
+        assert not {"repro_torch", "repro", "jax", "jaxlib", "flax"} & loaded, path
+
+
+#: the files that serve every family: none may name one, test a family's
+#: field or import a family's module
+GENERIC = ["harness/*.py", "metrics/*.py", "run.py", "readings.py", "sweep.py", "spans.py",
+           "faults.py", "traffic/kinds/*.py"]
+
+
+def test_the_harness_names_no_family():
+    bad = re.compile(r"\breference\.\w|from reference|import reference|\.moe\b|seg\d+_|\bgqa\b")
+    files = [p for pattern in GENERIC for p in sorted(BENCH.glob(pattern))]
+    assert len(files) > 20
+    for path in files:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            assert not bad.search(line), f"{path}:{i}: {line}"

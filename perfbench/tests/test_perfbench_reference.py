@@ -41,7 +41,7 @@ def test_m8_control_reads_far_wider(tmp_path, moe, number):
 def test_reference_moe_drops_past_capacity():
     """Four tokens all preferring expert 0 at capacity 1: only the first
     keeps it (k-major, then by token)."""
-    from reference.model import Sizes, capacity, moe
+    from reference.gqa import Sizes, capacity, moe
 
     sz = Sizes(n_layers=1, d_model=4, n_heads=1, n_kv_heads=1, d_ff=4, vocab=8, head_dim=4,
                experts=4, top_k=1, capacity_factor=1.0)
@@ -75,7 +75,7 @@ def test_judged_holds_every_slot_at_the_open(tmp_path):
     tl = run.timeline
     first = next(st for st in tl.steps if st.t0 >= tl.t_open)
     assert len(first.decode) == cell.traffic["slots"]
-    rids = check.judged(tl, run.sizes, 1, 2**31 + 9)
+    rids = check.judged(tl, cell.family.coupled_rows(run.sizes), 1, 2**31 + 9)
     assert set(first.decode) <= rids and len(rids) == cell.traffic["slots"] + (
         max(tl.tokens, key=lambda r: (len(tl.tokens[r]), -r)) not in first.decode)
 
